@@ -1,0 +1,172 @@
+"""Typed message envelopes for the EFMVFL party runtime.
+
+Every cross-party value of Algorithm 1's training path travels as one of
+these envelopes.  A `Message` knows its own wire size (`wire_bytes()`),
+so communication accounting is a property of the *transport* that
+carries it — the protocol math never touches a CommMeter.  Sizes use the wire format a
+real deployment serializes: 8-byte ring elements, canonical
+2·key_bits-bit Paillier ciphertexts, 1-byte flags.
+
+Message type ↔ paper mapping (also surfaced in README.md):
+
+  P1.z_share        Protocol 1 / Alg. 1 line 7   share of z_p = X_p W_p
+  P1.y_share        Protocol 1 / Alg. 1 line 8   share of the label Y
+  P1.ez_share       Protocol 1 (Poisson/Gamma)   share of e^{±z_p}
+  beaver_open       Beaver mult (Protocol 2/4)   masked openings d, e
+  P3.enc_d          Protocol 3 line 1            [[⟨d⟩]] CP ↔ CP exchange
+  P3.enc_d_bcast    Alg. 1 line 17               CP → non-CP broadcast
+  P3.masked_grad    Protocol 3 lines 5–6         masked encrypted gradient
+  P3.unmasked_share Protocol 3 line 7            decrypted+offset-corrected
+  P4.loss_share     Protocol 4                   loss share → CP0 → C
+  flag              Alg. 1 line 27               C's stop-flag broadcast
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, ClassVar
+
+import numpy as np
+
+from repro_torch.core.comm import FLAG_BYTES, RING_BYTES, ciphertext_wire_bytes
+
+TAG_PROTOCOL: dict[str, str] = {
+    "P1.z_share": "Protocol 1 / Alg.1 line 7 — share of z_p = X_p W_p",
+    "P1.y_share": "Protocol 1 / Alg.1 line 8 — share of the label Y",
+    "P1.ez_share": "Protocol 1 (Poisson/Gamma) — share of e^{±z_p}",
+    "beaver_open": "Beaver multiplication — masked openings d = x−a, e = y−b",
+    "P3.enc_d": "Protocol 3 line 1 — [[⟨d⟩]] exchanged between the CPs",
+    "P3.enc_d_bcast": "Alg.1 line 17 — CP broadcast of [[⟨d⟩]] to non-CPs",
+    "P3.masked_grad": "Protocol 3 lines 5–6 — masked encrypted gradient",
+    "P3.unmasked_share": "Protocol 3 line 7 — decrypted, offset-corrected share",
+    "P4.loss_share": "Protocol 4 — loss share to CP0, forwarded to C",
+    "flag": "Alg.1 line 27 — C's stop-flag broadcast",
+}
+
+
+def ciphertext_bytes(n_cts: int, key_bits: int) -> int:
+    """Canonical Paillier ciphertext batch: elements of Z_{n²}, each
+    serialized as ⌈2·key_bits / 8⌉ bytes.  (The ceiling matters: for key
+    sizes not divisible by 4 the old floor division under-counted what
+    the codec actually has to put on the wire — runtime/codec.py asserts
+    the two agree for every encoded message.)  Delegates to
+    `core.comm.ciphertext_wire_bytes`, the shared single formula."""
+    return n_cts * ciphertext_wire_bytes(key_bits)
+
+
+@dataclasses.dataclass
+class Message:
+    """Base envelope.
+
+    Fields:
+      src/dst: party names ("C", "B1", …) — the transport's routing keys.
+      payload: the value carried (subclass-specific; None for synthetic
+        traffic that only needs byte accounting).
+      tag: class-level wire tag, the key of all per-tag byte accounting
+        (`CommMeter.by_tag`) and of `TAG_PROTOCOL`.
+
+    `wire_bytes()` returns the serialized size in bytes a real
+    deployment would put on the wire for this envelope's payload
+    (headers excluded — the paper's comm columns count payloads).
+    """
+    src: str
+    dst: str
+    payload: Any = None
+    tag: ClassVar[str] = "?"
+
+    def wire_bytes(self) -> int:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class RingMessage(Message):
+    """Payload is an R64 ring tensor (8 bytes per element on the wire),
+    or None with `n_elems` given — traffic synthesis for dry-runs that
+    never materialize values."""
+    n_elems: int | None = None
+
+    def wire_bytes(self) -> int:
+        n = self.n_elems
+        if n is None:
+            n = int(np.prod(self.payload.lo.shape))
+        return n * RING_BYTES
+
+
+@dataclasses.dataclass
+class CipherMessage(Message):
+    """Payload is a batch of `n_cts` Paillier ciphertexts under
+    `key_owner`'s public key — on the wire, canonical Z_{n²} elements of
+    2·`key_bits` bits each (in memory, Montgomery-domain uint32 limb
+    arrays; the mock backend carries ring values but meters identical
+    bytes)."""
+    n_cts: int = 0
+    key_bits: int = 0
+    key_owner: str = ""
+
+    def wire_bytes(self) -> int:
+        return ciphertext_bytes(self.n_cts, self.key_bits)
+
+
+class ZShare(RingMessage):
+    """Protocol 1 / Alg. 1 line 7 — share of z_p = X_p W_p (R64, f
+    fractional bits), party → one CP."""
+    tag = "P1.z_share"
+
+
+class YShare(RingMessage):
+    """Protocol 1 / Alg. 1 line 8 — share of the label Y (R64, f
+    fractional bits), C → one CP."""
+    tag = "P1.y_share"
+
+
+class EzShare(RingMessage):
+    """Protocol 1, Poisson/Gamma — share of e^{±z_p} (R64, f fractional
+    bits), party → one CP."""
+    tag = "P1.ez_share"
+
+
+class BeaverOpen(RingMessage):
+    """Beaver multiplication (Protocols 2/4) — the masked openings
+    d = x−a, e = y−b one CP sends the other (2 R64 elements per product
+    element; accounted by `scheduler.TransportDealer`)."""
+    tag = "beaver_open"
+
+
+class UnmaskedShare(RingMessage):
+    """Protocol 3 line 7 — the decrypted, offset-corrected gradient term
+    (R64, fx+f fractional bits), key owner → feature owner."""
+    tag = "P3.unmasked_share"
+
+
+class LossShare(RingMessage):
+    """Protocol 4 — scalar loss share (R64, f fractional bits),
+    CP₁ → CP₀, then the reconstructed sum CP₀ → C."""
+    tag = "P4.loss_share"
+
+
+class EncD(CipherMessage):
+    """Protocol 3 line 1 — [[⟨d⟩]] (nb ciphertexts under the sender's
+    own key), CP ↔ CP exchange."""
+    tag = "P3.enc_d"
+
+
+class EncDBroadcast(CipherMessage):
+    """Alg. 1 line 17 — the same [[⟨d⟩]] ciphertext batch, CP → each
+    non-CP (payload shared with the `EncD` exchange; metered per
+    recipient, as a real broadcast would be)."""
+    tag = "P3.enc_d_bcast"
+
+
+class MaskedGrad(CipherMessage):
+    """Protocol 3 lines 5–6 — the masked encrypted gradient (m_p
+    ciphertexts under `key_owner`'s key), feature owner → key owner."""
+    tag = "P3.masked_grad"
+
+
+@dataclasses.dataclass
+class Flag(Message):
+    """C's stop decision, broadcast every iteration (Alg. 1 line 27)."""
+    stop: bool = False
+    tag: ClassVar[str] = "flag"
+
+    def wire_bytes(self) -> int:
+        return FLAG_BYTES
