@@ -2,31 +2,48 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
-Builds the CUDA kernels of `src/repro_torch/csrc/` with nvcc, holds each
-kernel against its plain PyTorch version at the training path's shapes
-(exact equality of channel states and limbs), checks 1024-bit Paillier
-on the card, then drives Algorithm 1 training at the paper's Table 1
-configuration (credit-default twin, 2 parties × 12 features, batch 2048,
-1024-bit keys) through `repro_torch.core.trainer.train_vfl`, with the
-Paillier and the mock backends, and checks that they agree bit for bit
-and that every kernel launched.  Prints one JSON line of kernel numbers
-and ends with a JSON line naming the device.  Any failed phase exits
-non-zero.
+Builds the seven CUDA kernels of `src/repro_torch/csrc/` with nvcc and
+holds each against its plain PyTorch version at the training path's
+shapes (exact equality of channel states and limbs), checks 1024-bit
+Paillier on the card on both arithmetic pipelines, then drives
+Algorithm 1 training at the paper's Table 1 configuration
+(credit-default twin, 2 parties × 12 features, batch 2048, 1024-bit
+keys) through `repro_torch.core.trainer.train_vfl` three ways:
+
+* the default RNS pipeline (K1–K3);
+* Path A, the CIOS pipeline pinned with ``REPRO_CRYPTO_PIPELINE=cios``
+  (K5–K7, none of K1–K4);
+* Path B, keys from ``paillier.keygen(1024, table_path=…)`` passed as a
+  `PaillierBackend`: fixed-base table noise (K4), K2 only for the
+  CRT-decrypt ladders;
+
+each against the mock backend (losses, weights, per-tag bytes and rounds
+bit for bit), and checks that every kernel of each path launched.  Then
+a crossover probe times the RNS and CIOS Montgomery products at 256 to
+2048 bits.  Prints one JSON line of kernel numbers, the card's name and
+power limit, and ends with a JSON line naming the device.  Any failed
+phase exits non-zero.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# peak rates of an H100 SXM (NVIDIA data sheet, dense)
+# peak rates of an H100 SXM (NVIDIA data sheet, dense, 700 W): HBM bytes,
+# int8 tensor-core operations, and int32 lane operations on the CUDA cores
+# (132 SMs x 64 int32 lanes a clock at the 1.98 GHz boost clock, the
+# clock behind the sheet's 67 TFLOP/s float32 figure)
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 KERNELS = {
     "rns_montmul": ("src/repro_torch/csrc/rns_montmul.cu",
@@ -35,7 +52,23 @@ KERNELS = {
                      "src/repro/kernels/montexp.py:220"),
     "rns_he_matvec": ("src/repro_torch/csrc/rns_matvec.cu",
                       "src/repro/kernels/montexp.py:306"),
+    "rns_fixed_base": ("src/repro_torch/csrc/rns_fixedbase.cu",
+                       "src/repro/kernels/montexp.py:372"),
+    "montmul": ("src/repro_torch/csrc/cios_montmul.cu",
+                "src/repro/kernels/montmul.py:93"),
+    "mont_exp": ("src/repro_torch/csrc/cios_montexp.cu",
+                 "src/repro/kernels/montexp.py:74"),
+    "he_matvec": ("src/repro_torch/csrc/cios_matvec.cu",
+                  "src/repro/kernels/montexp.py:151"),
 }
+# kernel symbol of each wrapper, for the profiler's tables
+SYMBOLS = {"rns_montmul": "rns_montmul_kernel",
+           "rns_mont_exp": "rns_montexp_kernel",
+           "rns_he_matvec": "rns_matvec_kernel",
+           "rns_fixed_base": "rns_fixedbase_kernel",
+           "montmul": "cios_montmul_kernel",
+           "mont_exp": "cios_montexp_kernel",
+           "he_matvec": "cios_matvec_kernel"}
 
 
 def log(*a):
@@ -45,6 +78,18 @@ def log(*a):
 def fail(msg: str, code: int = 1):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(code)
+
+
+def wrappers() -> dict:
+    """Each kernel's wrapper (its `.launches` is the launch count)."""
+    from repro_torch.kernels import montexp, montmul
+    return {"rns_montmul": montmul.rns_montmul_tiled,
+            "rns_mont_exp": montexp.rns_mont_exp_tiled,
+            "rns_he_matvec": montexp.rns_he_matvec_tiled,
+            "rns_fixed_base": montexp.rns_fixed_base_tiled,
+            "montmul": montmul.montmul_tiled,
+            "mont_exp": montexp.mont_exp_tiled,
+            "he_matvec": montexp.he_matvec_tiled}
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -69,12 +114,46 @@ def round_macs(ctx) -> int:
 
 
 def bound(bytes_moved: float, rounds: float, ctx) -> tuple[float, str]:
-    """Least time for the work: bytes at the HBM rate, or the extension
+    """Least time for RNS work: bytes at the HBM rate, or the extension
     products as four 7-bit-half int8 products each (2 ops per
     multiply-add) at the int8 tensor-core peak; the larger one."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = rounds * round_macs(ctx) * 4 * 2 / INT8_TC_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def cios_bound(bytes_moved: float, products: float, squares: float,
+               bits: int) -> tuple[float, str]:
+    """Least time for Montgomery products modulo a `bits`-bit N: bytes at
+    the HBM rate, or the operations; the larger one.  A product's a·b
+    half is W² 32x32->64-bit multiply-adds on W = ⌈bits/32⌉ words
+    (W(W+1)/2 for a square), two int32 lane operations each.  Its REDC
+    half (m = T·N' mod R, then m·N) has a fixed N, so it is a matrix
+    product on the int8 tensor cores over B = ⌈bits/8⌉ byte limbs:
+    B(B+1)/2 + B² multiply-adds, 2 operations each.  The halves run on
+    different units, so the slower one counts (as for RNS, whose bound
+    puts its fixed-matrix base extensions on the tensor cores)."""
+    W, B = -(-bits // 32), -(-bits // 8)
+    t_int32 = (products * W * W + squares * W * (W + 1) / 2) * 2 \
+        / INT32_OPS_PER_S * 1e3
+    t_tc = (products + squares) * (B * (B + 1) / 2 + B * B) * 2 \
+        / INT8_TC_OPS_PER_S * 1e3
+    t_ops = max(t_int32, t_tc)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def matvec_work(digits, window: int) -> tuple[int, int]:
+    """Least work of a windowed HE matvec whatever its chunking (the
+    Pallas kernel's contract: row values in, the (m, ·) product out):
+    per row, powers 2..2^w-1 (the even ones squares); per level and
+    column one product for each non-zero digit; after the first level,
+    w squarings per column.  Returns (products, squares)."""
+    levels, nrows, m = digits.shape
+    npow = (1 << window) - 2
+    nonzero = int(digits.count_nonzero().item())
+    return (nrows * (npow - npow // 2) + nonzero,
+            nrows * (npow // 2) + (levels - 1) * m * window)
 
 
 # ---------------------------------------------------------------------------
@@ -97,26 +176,44 @@ def phase_device():
                           text=True)
     log("[device] nvcc: " + nvcc.stdout.strip().splitlines()[-1])
     built = build.load()
-    log(f"[device] kernels built in {built.seconds:.2f} s")
+    log(f"[device] {len(built.libs)} kernel libraries built in "
+        f"{built.seconds:.2f} s")
     for line in built.log.splitlines():
+        spills = "spill" in line and " 0 bytes spill stores" not in line
         if "registers" in line or "Compiling" in line or "[" in line[:2] \
-                or "error" in line.lower():
+                or "error" in line.lower() or spills:
             log("  " + line.strip())
     return card
+
+
+def _random_ints(n: int, rows: int, gen) -> list[int]:
+    nb = (n.bit_length() + 7) // 8 + 8
+    return [int.from_bytes(gen.bytes(nb), "little") % n for _ in range(rows)]
+
+
+def _random_limbs(mod, rows, gen, device):
+    """Random canonical limbs < N (rows, L) int64 on `device`."""
+    from repro_torch.crypto import bigint
+    return bigint.as_limbs(bigint.ints_to_limbs(
+        _random_ints(mod.value, rows, gen), mod.L), device)
 
 
 def _random_states(ctx, nrows, gen, device):
     """·B-domain channel states of random values below N (to_rns_scaled
     of random canonical limbs, as the main path enters the pipeline)."""
-    import torch
     from repro_torch.crypto import bigint, rns
-    ints = [int.from_bytes(gen.bytes((ctx.value.bit_length() + 7) // 8),
-                           "little") % ctx.value for _ in range(nrows)]
-    limbs = bigint.as_limbs(bigint.ints_to_limbs(ints, ctx.L), device)
+    limbs = bigint.as_limbs(bigint.ints_to_limbs(
+        _random_ints(ctx.value, nrows, gen), ctx.L), device)
     return rns.to_rns_scaled(ctx, limbs)
 
 
-def phase_kernels(ctx_n2, ctx_p2, results):
+def _max_err(got, want) -> float:
+    import torch
+    return float((got.to(torch.int64) - want.to(torch.int64))
+                 .abs().max().item())
+
+
+def phase_rns_kernels(ctx_n2, ctx_p2, results):
     import numpy as np
     import torch
     from repro_torch.crypto import rns
@@ -127,14 +224,12 @@ def phase_kernels(ctx_n2, ctx_p2, results):
 
     def compare(name, got, want, ctx):
         if got.shape != want.shape or not torch.equal(got, want):
-            diff = (got.to(torch.int64) - want.to(torch.int64)).abs().max()
             fail(f"{name}: kernel channel states differ from the plain "
-                 f"version (max abs diff {int(diff)})")
+                 f"version (max abs diff {_max_err(got, want)})")
         lg, lw = rns.from_rns(ctx, got), rns.from_rns(ctx, want)
         if not torch.equal(lg, lw):
             fail(f"{name}: limbs after from_rns differ")
-        return float((got.to(torch.int64) - want.to(torch.int64))
-                     .abs().max().item())
+        return _max_err(got, want)
 
     # K1 at (2048, CH of n²)
     ctx = ctx_n2
@@ -211,11 +306,10 @@ def phase_kernels(ctx_n2, ctx_p2, results):
     ms = time_ms(lambda: montexp.rns_he_matvec_tiled(cts, digits, ctx,
                                                      window=4, chunk=CHUNK),
                  3)
-    # the least work of the function (the Pallas kernel's contract: states
-    # in, the (m, CH) product out), not of this kernel's chunked design:
-    # powers 2..15 of every row, then per level and column one round per
-    # row folded in and, after the first level, 4 squarings
-    rounds = 2048 * 14 + 6 * 12 * 2048 + 5 * 12 * 4
+    # the least work of the function, not of this kernel's chunked design
+    # (an RNS square is a whole round)
+    products, squares = matvec_work(digits, 4)
+    rounds = products + squares
     b, by = bound(cts.numel() * 4 + digits.numel() * 4 + 12 * ctx.CH * 4,
                   rounds, ctx)
     results["rns_he_matvec"] = dict(max_abs_err=err, ms=ms,
@@ -224,13 +318,143 @@ def phase_kernels(ctx_n2, ctx_p2, results):
     log(f"[kernels] rns_he_matvec (2048 rows, m 12, 6 levels): equal; "
         f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.5f} ms ({by})")
 
+    # K4 at the noise shapes: a (80, 16, CH) table, digits (2048, 80) for
+    # the ⟨d⟩ encryption and (12, 80) for the masks
+    levels, npow = 80, 16
+    table = _random_states(ctx, levels * npow, gen, dev).reshape(
+        levels, npow, ctx.CH).contiguous()
+    for rows in (2048, 12):
+        dg = torch.as_tensor(gen.integers(0, npow, size=(rows, levels)),
+                             dtype=torch.int32, device=dev)
+        got = montexp.rns_fixed_base_tiled(table, dg, ctx, window=4)
+        t0 = time.perf_counter()
+        want = montexp.plain_fixed_base(table, dg, ctx)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = compare(f"rns_fixed_base ({rows}, {ctx.CH}) x {levels} levels",
+                      got, want, ctx)
+        ms = time_ms(lambda: montexp.rns_fixed_base_tiled(table, dg, ctx,
+                                                          window=4), 5)
+        # one round a non-zero digit (a zero digit selects 1), one exit
+        b, by = bound(table.numel() * 4 + dg.numel() * 4
+                      + rows * ctx.CH * 4,
+                      int(dg.count_nonzero().item()) + rows, ctx)
+        log(f"[kernels] rns_fixed_base ({rows}, {ctx.CH}) x {levels} "
+            f"levels: equal; {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{b:.5f} ms ({by})")
+        if rows == 2048:
+            results["rns_fixed_base"] = dict(max_abs_err=err, ms=ms,
+                                             plain_ms=plain_ms, bound_ms=b,
+                                             bound_by=by)
 
-def phase_paillier(priv):
+
+def phase_cios_kernels(mod_n2, mod_p2, results):
+    import numpy as np
+    import torch
+    from repro_torch.crypto import bigint
+    from repro_torch.kernels import montexp, montmul
+    from repro_torch.kernels.ops import MATVEC_CHUNK as CHUNK
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(11)
+    L = mod_n2.L
+    bits_n2 = mod_n2.value.bit_length()
+
+    def compare(name, got, want):
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"{name}: kernel limbs differ from the plain version "
+                 f"(max abs diff {_max_err(got, want)})")
+        return _max_err(got, want)
+
+    # K5 at (2048, L of n²), and with one shared operand (to/from mont)
+    a = _random_limbs(mod_n2, 2048, gen, dev)
+    b = _random_limbs(mod_n2, 2048, gen, dev)
+    err = compare(f"montmul (2048, {L})", montmul.montmul_tiled(a, b, mod_n2),
+                  montmul.plain_cios(a, b, mod_n2))
+    compare(f"montmul (2048, {L}) x shared row",
+            montmul.montmul_tiled(a, b[0].contiguous(), mod_n2),
+            montmul.plain_cios(a, b[0], mod_n2))
+    ms = time_ms(lambda: montmul.montmul_tiled(a, b, mod_n2), 20)
+    plain_ms = time_ms(lambda: montmul.plain_cios(a, b, mod_n2), 5)
+    bd, by = cios_bound(3 * 2048 * L * 8, 2048, 0, bits_n2)
+    results["montmul"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bd, bound_by=by)
+    log(f"[kernels] montmul (2048, {L}): equal; {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bd:.5f} ms ({by})")
+
+    # K6 at (256, L) with per-row 1024-bit exponents (timed against the
+    # plain ladder); then the main path's shapes, every row checked: the
+    # r^n noise (2048 rows) and mask (12 rows) ladders with one shared
+    # 1024-bit exponent, and the CRT-decrypt ladders (12 rows of p², one
+    # shared 512-bit exponent).  A constant-time ladder squares and
+    # multiplies once a bit.
+    u = _random_limbs(mod_n2, 256, gen, dev)
+    bits = torch.as_tensor(gen.integers(0, 2, size=(256, 1024)),
+                           dtype=torch.int32, device=dev)
+    got = montexp.mont_exp_tiled(u, bits, mod_n2)
+    t0 = time.perf_counter()
+    want = montexp.plain_cios_ladder(u, bits, mod_n2)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = compare(f"mont_exp (256, {L}) x 1024 bits", got, want)
+    ms = time_ms(lambda: montexp.mont_exp_tiled(u, bits, mod_n2), 3)
+    bd, by = cios_bound(2 * 256 * L * 8 + bits.numel() * 4, 256 * 1024,
+                        256 * 1024, bits_n2)
+    results["mont_exp"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bd, bound_by=by)
+    log(f"[kernels] mont_exp (256, {L}) x 1024 bits: equal; {ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms, bound {bd:.4f} ms ({by})")
+    shared = torch.as_tensor(gen.integers(0, 2, size=1024), dtype=torch.int32,
+                             device=dev)
+    shared[0] = 1
+    half = torch.as_tensor(gen.integers(0, 2, size=512), dtype=torch.int32,
+                           device=dev)
+    half[0] = 1
+    for mod, rows, e, label in ((mod_n2, 2048, shared, "1024 shared bits"),
+                                (mod_n2, 12, shared, "1024 shared bits"),
+                                (mod_p2, 12, half, "512 shared bits")):
+        un = _random_limbs(mod, rows, gen, dev)
+        got = montexp.mont_exp_tiled(un, e, mod)
+        t0 = time.perf_counter()
+        want = montexp.plain_cios_ladder(un, e, mod)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        compare(f"mont_exp ({rows}, {mod.L}) x {label}", got, want)
+        msn = time_ms(lambda: montexp.mont_exp_tiled(un, e, mod), 2)
+        bd, by = cios_bound(2 * rows * mod.L * 8 + e.numel() * 4,
+                            rows * e.numel(), rows * e.numel(),
+                            mod.value.bit_length())
+        log(f"[kernels] mont_exp ({rows}, {mod.L}) x {label}: equal on all "
+            f"{rows} rows (plain {plain_s:.1f} s); {msn:.3f} ms, bound "
+            f"{bd:.4f} ms ({by})")
+
+    # K7 at nrows 2048, m 12, 6 levels of window 4
+    cts = _random_limbs(mod_n2, 2048, gen, dev)
+    digits = torch.as_tensor(gen.integers(0, 16, size=(6, 2048, 12)),
+                             dtype=torch.int32, device=dev)
+    got = montexp.he_matvec_tiled(cts, digits, mod_n2, window=4, chunk=CHUNK)
+    t0 = time.perf_counter()
+    want = montexp.cios_matvec_partials(cts, digits, mod_n2, 4, CHUNK)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = compare("he_matvec (2048 rows, m 12, 6 levels)", got, want)
+    ms = time_ms(lambda: montexp.he_matvec_tiled(cts, digits, mod_n2,
+                                                 window=4, chunk=CHUNK), 3)
+    # least work of the function, whatever the chunking (as for K3)
+    products, squares = matvec_work(digits, 4)
+    bd, by = cios_bound(cts.numel() * 8 + digits.numel() * 4 + 12 * L * 8,
+                        products, squares, bits_n2)
+    results["he_matvec"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bd, bound_by=by)
+    log(f"[kernels] he_matvec (2048 rows, m 12, 6 levels): equal; "
+        f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bd:.4f} ms ({by})")
+
+
+def phase_paillier(priv, pipeline: str):
     import numpy as np
     from repro_torch.core import protocols
     from repro_torch.crypto import bigint, engine, paillier
     dev = "cuda"
-    eng = engine.make("cuda")
+    eng = engine.make("cuda", pipeline=pipeline)
     pub = priv.pub
     gen = np.random.default_rng(3)
     ms = [int.from_bytes(gen.bytes(120), "little") % pub.n for _ in range(8)]
@@ -240,11 +464,11 @@ def phase_paillier(priv):
     c = paillier.encrypt(pub, m, eng, rng=gen)
     c2 = paillier.encrypt(pub, m2, eng, rng=gen)
     if paillier.decode_ints(paillier.decrypt_crt(priv, c, eng)) != ms:
-        fail("Paillier: decrypt_crt(encrypt(m)) != m")
+        fail(f"Paillier ({pipeline}): decrypt_crt(encrypt(m)) != m")
     got = paillier.decode_ints(paillier.decrypt_crt(
         priv, paillier.add_ct(pub, c, c2, eng), eng))
     if got != [(a + b) % pub.n for a, b in zip(ms, ms2)]:
-        fail("Paillier: Dec(c1 ⊕ c2) != m1 + m2")
+        fail(f"Paillier ({pipeline}): Dec(c1 ⊕ c2) != m1 + m2")
     nrows, mcols, width = 64, 12, protocols.DEFAULT_EXP_BITS
     d = [int(v) for v in gen.integers(0, 1 << 62, size=nrows)]
     exps = gen.integers(0, 1 << width, size=(nrows, mcols)).astype(np.uint32)
@@ -255,115 +479,273 @@ def phase_paillier(priv):
     want = [sum(int(exps[i, j]) * d[i] for i in range(nrows)) % pub.n
             for j in range(mcols)]
     if got != want:
-        fail("Paillier: HE matvec does not decrypt to the integer product")
-    log(f"[paillier] {pub.key_bits}-bit keys on {dev}: Dec(Enc(m)) = m, "
-        "Dec(c1 ⊕ c2) = m1 + m2, HE matvec (64 x 12) = integer product")
+        fail(f"Paillier ({pipeline}): HE matvec does not decrypt to the "
+             "integer product")
+    log(f"[paillier] {pub.key_bits}-bit keys on {dev}, pipeline {pipeline}: "
+        "Dec(Enc(m)) = m, Dec(c1 ⊕ c2) = m1 + m2, HE matvec (64 x 12) = "
+        "integer product")
 
 
-def phase_train(results):
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.trainer import PartyData, VFLConfig, train_vfl
-    from repro_torch.crypto import paillier
+# ---------------------------------------------------------------------------
+# training paths
+# ---------------------------------------------------------------------------
+
+ITERS = 3
+
+
+def table1_parties():
+    from repro_torch.core.trainer import PartyData
     from repro_torch.data import synthetic, vertical
-    from repro_torch.kernels import montexp, montmul
     X, y = synthetic.credit_default(n=30000, d=24, seed=0)
     (Xtr, ytr), _ = synthetic.train_test_split(X, y, 0.7)
     parts = vertical.split_columns(Xtr, 2)
-    parties = [PartyData("C", parts[0]), PartyData("B1", parts[1])]
-    kw = dict(glm="logistic", lr=0.15, batch_size=2048, key_bits=1024,
-              max_iter=3, tol=0.0, seed=0, device="cuda")
-    wrappers = {"rns_montmul": montmul.rns_montmul_tiled,
-                "rns_mont_exp": montexp.rns_mont_exp_tiled,
-                "rns_he_matvec": montexp.rns_he_matvec_tiled}
-    sync = torch.cuda.synchronize
-    t0 = time.perf_counter()
-    paillier.keygen(1024, seed=12345)
-    keygen_s = time.perf_counter() - t0
+    return [PartyData("C", parts[0]), PartyData("B1", parts[1])], ytr
 
-    # the counted run: every launch count is read from this run alone
-    sync()
-    torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    res = train_vfl(parties, ytr, VFLConfig(he_backend="paillier", **kw))
-    sync()
-    wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated()
 
-    t0 = time.perf_counter()
-    ref = train_vfl(parties, ytr, VFLConfig(he_backend="mock", **kw))
-    sync()
-    mock_s = time.perf_counter() - t0
+def table1_kw() -> dict:
+    return dict(glm="logistic", lr=0.15, batch_size=2048, key_bits=1024,
+                max_iter=ITERS, tol=0.0, seed=0, device="cuda")
+
+
+def check_equal(label: str, res, ref):
+    import numpy as np
     if res.losses != ref.losses:
-        fail(f"paillier losses {res.losses} != mock losses {ref.losses}")
+        fail(f"{label}: losses {res.losses} != mock losses {ref.losses}")
     for name in ref.weights:
         if not np.array_equal(res.weights[name], ref.weights[name]):
-            fail(f"paillier weights of {name} differ from the mock run")
+            fail(f"{label}: weights of {name} differ from the mock run")
     if dict(res.meter.by_tag) != dict(ref.meter.by_tag) \
             or res.rounds != ref.rounds:
-        fail("paillier and mock runs meter different bytes or rounds")
-    if not all(np.isfinite(res.losses)) or res.n_iter != 3:
-        fail(f"bad training result: losses {res.losses}, n_iter {res.n_iter}")
-    for k, cnt in launches.items():
-        if cnt <= 0:
-            fail(f"kernel {k} never launched on the main path")
-        results.setdefault(k, {})["launches"] = cnt
-    log(f"[train] Table 1 config (n=30000, keys 1024 bits, batch 2048), "
-        f"paillier, 3 iterations on cuda: {wall:.2f} s wall incl. keygen "
-        f"and set-up; {res.runtime_s / 3:.3f} s/iteration (host clock, "
-        f"iterations only); one 1024-bit keygen {keygen_s:.2f} s; losses "
-        f"{res.losses}")
-    log(f"[train] mock run identical (losses, weights, bytes, rounds); "
-        f"{mock_s:.2f} s wall, {ref.runtime_s / 3:.3f} s/iteration")
-    log(f"[train] bytes by tag {dict(res.meter.by_tag)}; rounds "
-        f"{res.rounds}; peak device memory {peak / 2**20:.1f} MiB; kernel "
-        f"launches {launches}")
+        fail(f"{label}: meters different bytes or rounds than the mock run")
+    if not all(np.isfinite(res.losses)) or res.n_iter != ITERS:
+        fail(f"{label}: bad result: losses {res.losses}, n_iter "
+             f"{res.n_iter}")
 
-    # a second, profiled run: device time by kernel and the host hot spots
+
+def counted_run(run):
+    """`run()` with every launch count set to 0 just before and read just
+    after; returns (result, launches, host seconds, peak device bytes)."""
+    import torch
+    ws = wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in ws.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in ws.items()}
+    return res, launches, wall, torch.cuda.max_memory_allocated()
+
+
+def profiled_run(label: str, run) -> dict:
+    """`run()` under torch.profiler: device time by kernel, all device
+    time, and its share of the iterations' host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        res_p = train_vfl(parties, ytr, VFLConfig(he_backend="paillier",
-                                                  **kw))
-        sync()
-    kern = {"rns_montmul": "rns_montmul_kernel",
-            "rns_mont_exp": "rns_montexp_kernel",
-            "rns_he_matvec": "rns_matvec_kernel"}
-    dev_us = {k: 0.0 for k in kern}
+        res = run()
+        torch.cuda.synchronize()
+    dev_us = {k: 0.0 for k in SYMBOLS}
     total_dev_us = 0.0
     events = prof.key_averages()
     for ev in events:
         t = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
         total_dev_us += t
-        for k, name in kern.items():
+        for k, name in SYMBOLS.items():
             if name in ev.key:
                 dev_us[k] += t
     top_dev = sorted(events, key=lambda e: -float(
         getattr(e, "self_device_time_total", 0.0) or 0.0))[:8]
-    top_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:10]
-    run_ms = res_p.runtime_s * 1e3
-    log(f"[profile] paillier run under the profiler: "
-        f"{res_p.runtime_s / 3:.3f} s/iteration; device time of all CUDA "
-        f"work {total_dev_us / 1e3:.1f} ms = "
-        f"{100 * total_dev_us / 1e3 / max(run_ms, 1e-9):.1f}% of the "
+    top_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
+    run_ms = res.runtime_s * 1e3
+    share = total_dev_us / 1e3 / max(run_ms, 1e-9)
+    log(f"[profile {label}] {res.runtime_s / ITERS:.3f} s/iteration under "
+        f"the profiler; device time of all CUDA work "
+        f"{total_dev_us / 1e3:.1f} ms = {100 * share:.1f}% of the "
         f"iterations' host time")
-    log("[profile] device ms by kernel " + json.dumps(
-        {k: round(v / 1e3, 3) for k, v in dev_us.items()}))
-    log("[profile] top device ops (ms, calls): " + "; ".join(
+    log(f"[profile {label}] device ms by kernel " + json.dumps(
+        {k: round(v / 1e3, 3) for k, v in dev_us.items() if v}))
+    log(f"[profile {label}] top device ops (ms, calls): " + "; ".join(
         f"{e.key[:60]} {float(e.self_device_time_total) / 1e3:.1f} "
         f"{e.count}" for e in top_dev))
-    log("[profile] top host ops by self CPU (ms, calls): " + "; ".join(
-        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} {e.count}"
-        for e in top_cpu))
-    results["_train"] = dict(
-        wall_s=wall, s_per_iter=res.runtime_s / 3, keygen_s=keygen_s,
-        mock_s_per_iter=ref.runtime_s / 3, peak_bytes=peak,
-        profiled_s_per_iter=res_p.runtime_s / 3,
-        device_ms={k: v / 1e3 for k, v in dev_us.items()},
-        all_device_ms=total_dev_us / 1e3)
+    log(f"[profile {label}] top host ops by self CPU (ms, calls): "
+        + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} "
+                    f"{e.count}" for e in top_cpu))
+    return dict(profiled_s_per_iter=res.runtime_s / ITERS,
+                device_ms={k: v / 1e3 for k, v in dev_us.items() if v},
+                all_device_ms=total_dev_us / 1e3, device_share=share)
+
+
+def require(label, launches, positive=(), zero=(), exact=None):
+    for k in positive:
+        if launches[k] <= 0:
+            fail(f"{label}: kernel {k} never launched on this path")
+    for k in zero:
+        if launches[k] != 0:
+            fail(f"{label}: kernel {k} launched {launches[k]} times; this "
+                 "path must not run it")
+    for k, n in (exact or {}).items():
+        if launches[k] != n:
+            fail(f"{label}: kernel {k} launched {launches[k]} times, "
+                 f"expected {n}")
+
+
+def phase_train(results, mock):
+    """The default (RNS) pipeline: K1–K3."""
+    from repro_torch.core.trainer import VFLConfig, train_vfl
+    from repro_torch.crypto import paillier
+    parties, y = table1_parties()
+    kw = table1_kw()
+    t0 = time.perf_counter()
+    paillier.keygen(1024, seed=12345)
+    keygen_s = time.perf_counter() - t0
+    res, launches, wall, peak = counted_run(
+        lambda: train_vfl(parties, y, VFLConfig(he_backend="paillier", **kw)))
+    check_equal("RNS path", res, mock)
+    require("RNS path", launches,
+            positive=("rns_montmul", "rns_mont_exp", "rns_he_matvec"),
+            zero=("rns_fixed_base", "montmul", "mont_exp", "he_matvec"))
+    for k in ("rns_montmul", "rns_mont_exp", "rns_he_matvec"):
+        results.setdefault(k, {})["launches"] = launches[k]
+    log(f"[train] Table 1 config (n=30000, keys 1024 bits, batch 2048), "
+        f"paillier, RNS pipeline, {ITERS} iterations on cuda: {wall:.2f} s "
+        f"wall incl. keygen and set-up; {res.runtime_s / ITERS:.3f} "
+        f"s/iteration (host clock, iterations only); one 1024-bit keygen "
+        f"{keygen_s:.2f} s; losses {res.losses}")
+    log(f"[train] mock run identical (losses, weights, bytes, rounds); "
+        f"{mock.runtime_s / ITERS:.3f} s/iteration")
+    log(f"[train] bytes by tag {dict(res.meter.by_tag)}; rounds "
+        f"{res.rounds}; peak device memory {peak / 2**20:.1f} MiB; kernel "
+        f"launches {launches}")
+    prof = profiled_run("rns", lambda: train_vfl(
+        parties, y, VFLConfig(he_backend="paillier", **kw)))
+    results["_train"] = dict(wall_s=wall, s_per_iter=res.runtime_s / ITERS,
+                             keygen_s=keygen_s, peak_bytes=peak,
+                             mock_s_per_iter=mock.runtime_s / ITERS, **prof)
+
+
+def phase_path_a(results, mock):
+    """Path A: the CIOS pipeline, pinned with the reference's knob."""
+    from repro_torch.core.trainer import VFLConfig, train_vfl
+    from repro_torch.crypto import engine
+    parties, y = table1_parties()
+    kw = table1_kw()
+    prev = os.environ.get(engine.PIPELINE_ENV_VAR)
+    os.environ[engine.PIPELINE_ENV_VAR] = "cios"
+    try:
+        res, launches, wall, peak = counted_run(lambda: train_vfl(
+            parties, y, VFLConfig(he_backend="paillier", **kw)))
+        check_equal("path A (cios)", res, mock)
+        require("path A (cios)", launches,
+                positive=("montmul", "mont_exp", "he_matvec"),
+                zero=("rns_montmul", "rns_mont_exp", "rns_he_matvec",
+                      "rns_fixed_base"))
+        for k in ("montmul", "mont_exp", "he_matvec"):
+            results.setdefault(k, {})["launches"] = launches[k]
+        log(f"[path A] Table 1, paillier, REPRO_CRYPTO_PIPELINE=cios, "
+            f"{ITERS} iterations: {res.runtime_s / ITERS:.3f} s/iteration "
+            f"(host clock, iterations only), {wall:.2f} s wall; equal to "
+            f"the mock run; peak device memory {peak / 2**20:.1f} MiB; "
+            f"kernel launches {launches}")
+        prof = profiled_run("path A", lambda: train_vfl(
+            parties, y, VFLConfig(he_backend="paillier", **kw)))
+    finally:
+        if prev is None:
+            os.environ.pop(engine.PIPELINE_ENV_VAR, None)
+        else:
+            os.environ[engine.PIPELINE_ENV_VAR] = prev
+    results["_path_a"] = dict(s_per_iter=res.runtime_s / ITERS, wall_s=wall,
+                              peak_bytes=peak, launches=launches, **prof)
+
+
+def phase_path_b(results, mock):
+    """Path B: fixed-base noise tables from keygen(table_path=…)."""
+    import numpy as np
+    from repro_torch.core import protocols
+    from repro_torch.core.trainer import VFLConfig, train_vfl
+    from repro_torch.crypto import engine, paillier
+    parties, y = table1_parties()
+    kw = table1_kw()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        seeds = {"C": 101, "B1": 202}
+
+        def keys(table: bool):
+            return {p: paillier.keygen(1024, seed=s, table_path=os.path.join(
+                tmp, f"noise_{p}.npz") if table else None)
+                for p, s in seeds.items()}
+        t0 = time.perf_counter()
+        keys(False)
+        keygen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        keys(True)                                 # builds both tables
+        build_s = time.perf_counter() - t0 - keygen_s
+        t0 = time.perf_counter()
+        ks = keys(True)                            # loads them
+        load_s = time.perf_counter() - t0 - keygen_s
+        table = ks["C"].noise_table
+        log(f"[path B] two 1024-bit keygens {keygen_s:.2f} s; their noise "
+            f"tables ({table.levels} levels x {1 << table.window} entries x "
+            f"CH {table.table_rns.shape[-1]}, {table.nbytes() / 2**20:.2f} "
+            f"MiB each) {build_s:.2f} s to build and save, {load_s:.2f} s "
+            f"to load (keygen time subtracted)")
+
+        def run():
+            backend = protocols.PaillierBackend(
+                ks, np.random.default_rng(0), engine.make("cuda"),
+                device="cuda")
+            return train_vfl(parties, y, VFLConfig(he_backend="paillier",
+                                                   **kw), backend=backend)
+        res, launches, wall, peak = counted_run(run)
+        check_equal("path B (tables)", res, mock)
+        # K2 runs only the CRT-decrypt ladders: 2 decryptions of 2 primes
+        require("path B (tables)", launches,
+                positive=("rns_fixed_base", "rns_montmul", "rns_he_matvec"),
+                zero=("montmul", "mont_exp", "he_matvec"),
+                exact={"rns_mont_exp": 4 * ITERS})
+        results.setdefault("rns_fixed_base", {})["launches"] = \
+            launches["rns_fixed_base"]
+        log(f"[path B] Table 1, paillier with fixed-base table noise, "
+            f"{ITERS} iterations: {res.runtime_s / ITERS:.3f} s/iteration "
+            f"(host clock, iterations only), {wall:.2f} s wall; equal to "
+            f"the mock run; peak device memory {peak / 2**20:.1f} MiB; "
+            f"kernel launches {launches}")
+        prof = profiled_run("path B", run)
+    results["_path_b"] = dict(s_per_iter=res.runtime_s / ITERS, wall_s=wall,
+                              peak_bytes=peak, table_build_s=build_s,
+                              table_load_s=load_s, launches=launches, **prof)
+
+
+def phase_probe(results):
+    """RNS (K1 plus its limb conversions) against CIOS (K5) Montgomery
+    products at batch 2048, for the RNS_MIN_BITS crossover."""
+    import numpy as np
+    import torch
+    from repro_torch.crypto import bigint
+    from repro_torch.kernels import ops
+    gen = np.random.default_rng(17)
+    rows = {}
+    for bits in (256, 512, 1024, 2048):
+        n = int.from_bytes(gen.bytes(bits // 8), "little") \
+            | (1 << (bits - 1)) | 1
+        mod = bigint.Modulus.make(n)
+        a = _random_limbs(mod, 2048, gen, "cuda")
+        b = _random_limbs(mod, 2048, gen, "cuda")
+        if not torch.equal(ops.rns_montmul(a, b, mod), ops.montmul(a, b, mod)):
+            fail(f"probe: RNS and CIOS products differ at {bits} bits")
+        rns_ms = time_ms(lambda: ops.rns_montmul(a, b, mod), 10)
+        cios_ms = time_ms(lambda: ops.montmul(a, b, mod), 10)
+        cios_ms2 = time_ms(lambda: ops.montmul(a, b, mod), 10)
+        rns_ms2 = time_ms(lambda: ops.rns_montmul(a, b, mod), 10)
+        rows[bits] = dict(rns_ms=(rns_ms + rns_ms2) / 2,
+                          cios_ms=(cios_ms + cios_ms2) / 2)
+        log(f"[probe] {bits}-bit modulus (L {mod.L}), batch 2048: RNS "
+            f"montmul {rns_ms:.4f}/{rns_ms2:.4f} ms, CIOS montmul "
+            f"{cios_ms:.4f}/{cios_ms2:.4f} ms (RNS, CIOS, CIOS, RNS)")
+    results["_probe"] = rows
 
 
 def main():
@@ -383,23 +765,33 @@ def main():
     ctx_n2 = rns.for_modulus(priv.pub.mod_n2)
     ctx_p2 = rns.for_modulus(priv.crt_p.mod_p2)
     log(f"[keys] 1024-bit key: n² CH={ctx_n2.CH} (kA {ctx_n2.kA}, kB "
-        f"{ctx_n2.kB}), p² CH={ctx_p2.CH}")
+        f"{ctx_n2.kB}), L {priv.pub.mod_n2.L}; p² CH={ctx_p2.CH}, L "
+        f"{priv.crt_p.mod_p2.L}")
     results = {}
-    phase_kernels(ctx_n2, ctx_p2, results)
-    phase_paillier(priv)
-    phase_train(results)
-    train = results.pop("_train", {})
+    phase_rns_kernels(ctx_n2, ctx_p2, results)
+    phase_cios_kernels(priv.pub.mod_n2, priv.crt_p.mod_p2, results)
+    phase_paillier(priv, "rns")
+    phase_paillier(priv, "cios")
+    from repro_torch.core.trainer import VFLConfig, train_vfl
+    parties, y = table1_parties()
+    mock = train_vfl(parties, y, VFLConfig(he_backend="mock", **table1_kw()))
+    phase_train(results, mock)
+    phase_path_a(results, mock)
+    phase_path_b(results, mock)
+    phase_probe(results)
+    summary = {k: results.pop(k) for k in list(results) if k[0] == "_"}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
-        r = results[name]
+        r = results.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": r.get("launches", 0),
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "max_abs_err": r.get("max_abs_err"),
+                        "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                        "bound_ms": r.get("bound_ms"),
+                        "bound_by": r.get("bound_by"), "library_ms": None})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card {card}; "
-        f"train {json.dumps(train)}")
+        f"summary {json.dumps(summary)}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,9 @@ key owner and unmasked locally.
   bit.
 
 Ring shares are `R64` tensors and ciphertexts int64 limb tensors, both
-on the backend's device.  The fixed-base noise tables and the noise
-prefetch pool of the reference wait for later slices.
+on the backend's device.  Encryption noise is r^n, or h^ρ from a
+party's fixed-base table (`crypto.fixed_base`) when one is attached.
+The noise prefetch pool of the reference waits for a later slice.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.crypto import bigint, fixed_point, paillier, prng, ring
+from repro_torch.crypto import (bigint, fixed_base, fixed_point, paillier,
+                                prng, ring)
 from repro_torch.crypto.engine import CryptoEngine
 from repro_torch.crypto.ring import R64
 
@@ -48,13 +50,32 @@ def he_matvec(pub: paillier.PublicKey, cts: torch.Tensor, exps: np.ndarray,
               window: int = DEFAULT_WINDOW, *, digits=None) -> torch.Tensor:
     """cts: (n, L2) Montgomery ciphertexts; exps: (n, m) < 2^width.
     Returns (m, L2) ciphertexts of Σ_i exps[i,j]·m_i (integer, no wrap).
+    window=1 → bit-serial ladder; window=4 (default) → fixed-window.
     `digits` may carry the precomputed DEFAULT_WINDOW decomposition
-    (EncodedFeatures.digits); window=1 is the bit-serial ladder."""
+    (EncodedFeatures.digits).
+
+    Routed as the reference routes it: on the CIOS pipeline with CPU
+    tensors, the library ladders (`bigint.he_matvec_windowed`,
+    `bigint.he_matvec_bitserial`); otherwise the engine's fused matvec
+    (K7 on CIOS, K3 on RNS, or their plain versions on the CPU)."""
+    exps = np.asarray(exps, np.uint32)
+    library = engine.route(pub.mod_n2) == "cios" and not cts.is_cuda
+    if library:
+        engine.check_device(cts)
+    if window <= 1:
+        bits = window_digits(exps, width, 1)
+        if library:
+            return bigint.he_matvec_bitserial(
+                cts, torch.as_tensor(bits.astype(np.int64)), pub.mod_n2)
+        return engine.he_matvec_windowed(cts, bits, pub.mod_n2, 1)
     if digits is None or window != DEFAULT_WINDOW \
             or digits.shape[-1] != -(-width // window):
-        digits = window_digits(np.asarray(exps, np.uint32), width,
-                               max(window, 1))
-    return engine.he_matvec_windowed(cts, digits, pub.mod_n2, max(window, 1))
+        digits = window_digits(exps, width, window)
+    if library:
+        return bigint.he_matvec_windowed(
+            cts, torch.as_tensor(np.asarray(digits).astype(np.int64)),
+            pub.mod_n2, window)
+    return engine.he_matvec_windowed(cts, digits, pub.mod_n2, window)
 
 
 # ---------------------------------------------------------------------------
@@ -63,9 +84,15 @@ def he_matvec(pub: paillier.PublicKey, cts: torch.Tensor, exps: np.ndarray,
 
 class PaillierBackend:
     """Real Paillier.  Each party owns a keypair; every hot loop goes
-    through `engine` on `device`.  Encryption noise r is drawn from the
-    shared protocol stream `rng` at the point of use, as in the
-    reference's synchronous path."""
+    through `engine` on `device`.  Encryption randomness is drawn from
+    the shared protocol stream `rng` at the point of use, as in the
+    reference's synchronous path.
+
+    Fixed-base tables: `attach_table` (or a `PrivateKey.noise_table`
+    from `keygen(table_path=…)`, picked up here) switches a party's
+    noise to the short-exponent form h^ρ evaluated from its persistent
+    table (`crypto.fixed_base`, kernel K4).  Masks still cancel exactly,
+    so trained models are bit-identical across noise forms."""
 
     name = "paillier"
 
@@ -75,14 +102,44 @@ class PaillierBackend:
         self.rng = rng
         self.engine = engine
         self.device = torch.device(device)
+        self.tables: dict[str, fixed_base.FixedBaseTable] = {
+            party: key.noise_table for party, key in keys.items()
+            if getattr(key, "noise_table", None) is not None}
 
     def key_bits(self, party: str) -> int:
         return self.keys[party].pub.key_bits
 
-    def _encrypt(self, pub, m: torch.Tensor, count: int) -> torch.Tensor:
+    def attach_table(self, party: str, table) -> None:
+        """Route `party`'s encryption noise through a persistent fixed-
+        base table (fingerprint-checked against the party's key)."""
+        pub = self.keys[party].pub
+        if table.fingerprint != fixed_base.key_fingerprint(pub.n):
+            raise fixed_base.TableMismatchError(
+                f"table fingerprint does not match {party!r}'s public key")
+        self.tables[party] = table
+
+    def attach_tables(self, tables: dict) -> None:
+        for party, table in tables.items():
+            self.attach_table(party, table)
+
+    def _noise_job(self, party: str, count: int):
+        """Draw the randomness for `count` noises now (the protocol
+        stream stays deterministic) and return the compute call:
+        table-backed h^ρ when a table is attached, the r^n ladder
+        otherwise."""
+        pub = self.keys[party].pub
+        table = self.tables.get(party)
+        if table is not None:
+            digits = fixed_base.draw_exponent_digits(table, count, self.rng)
+            return (paillier.noise_from_table, pub, table, digits,
+                    self.engine, self.device)
         raw = paillier.raw_noise(pub, count, self.rng)
-        rn = paillier.noise_to_mont(pub, raw, self.engine, self.device)
-        rn = rn.reshape(tuple(m.shape[:-1]) + (pub.Ln2,))
+        return (paillier.noise_to_mont, pub, raw, self.engine, self.device)
+
+    def _encrypt(self, pub, m: torch.Tensor, party: str,
+                 count: int) -> torch.Tensor:
+        fn, *args = self._noise_job(party, count)
+        rn = fn(*args).reshape(tuple(m.shape[:-1]) + (pub.Ln2,))
         return paillier.encrypt_with_noise(pub, m, rn, self.engine)
 
     # -- protocol ops -------------------------------------------------------
@@ -90,7 +147,7 @@ class PaillierBackend:
         pub = self.keys[party].pub
         m = fixed_point.r64_to_limbs(d, pub.Ln)
         count = int(np.prod(m.shape[:-1])) if m.dim() > 1 else 1
-        return self._encrypt(pub, m, count)
+        return self._encrypt(pub, m, party, count)
 
     def matvec(self, party: str, cts, exps, width, digits=None
                ) -> torch.Tensor:
@@ -103,7 +160,7 @@ class PaillierBackend:
         pub = self.keys[party].pub
         m = bigint.as_limbs(bigint.ints_to_limbs(mask_ints, pub.Ln),
                             self.device)
-        cr = self._encrypt(pub, m, len(mask_ints))
+        cr = self._encrypt(pub, m, party, len(mask_ints))
         return paillier.add_ct(pub, cts, cr, self.engine)
 
     def decrypt_to_r64(self, party: str, cts) -> R64:

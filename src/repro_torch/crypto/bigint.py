@@ -13,8 +13,13 @@ bit of the last non-propagating position below i — one `cummax` over the
 limb axis.  Borrows resolve the same way.  The results are the unique
 canonical values, identical to the reference's sequential scans.
 
-The CIOS Montgomery loops (`mont_mul`, `mont_exp_bits` of the reference)
-belong to the CIOS pipeline and are not part of this module yet.
+The Montgomery library (`mont_mul`, `mont_exp_bits`, the HE matvec
+ladders) is the plain version of the CIOS kernels K5–K7
+(`repro_torch.kernels`).  Where the reference runs L carry-coupled CIOS
+rounds, `mont_mul` reduces the whole product at once (REDC): one exact
+product, m = T·(−N⁻¹) mod R and (T + m·N)/R as Toeplitz matmuls, then a
+carry sweep and one conditional subtraction.  Both return the unique
+canonical value a·b·R⁻¹ mod N, so they agree bit for bit.
 """
 from __future__ import annotations
 
@@ -150,26 +155,31 @@ def as_limbs(x, device=None) -> torch.Tensor:
 def _one_shot_carry(t: torch.Tensor) -> torch.Tensor:
     """Move each limb's overflow one position up (value-preserving mod
     2^(12 L): the top limb's overflow is dropped)."""
-    hi = t >> LIMB_BITS
-    return (t & MASK) + torch.nn.functional.pad(hi[..., :-1], (1, 0))
+    out = t & MASK
+    out[..., 1:] += t[..., :-1] >> LIMB_BITS
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _positions(L: int, device: str) -> torch.Tensor:
+    return torch.arange(L, device=device)
 
 
 def _carries(gen: torch.Tensor, kill_or_gen: torch.Tensor) -> torch.Tensor:
     """Carry out of every position: the `gen` bit of the last position at
     or below it that does not merely propagate (0 if there is none)."""
-    L = gen.shape[-1]
-    pos = torch.arange(L, device=gen.device).expand_as(gen)
-    marker = torch.where(kill_or_gen, pos, torch.full_like(pos, -1))
-    last = torch.cummax(marker, dim=-1).values
+    pos = _positions(gen.shape[-1], str(gen.device))
+    last = torch.cummax(torch.where(kill_or_gen, pos, -1), dim=-1).values
     c = torch.gather(gen, -1, last.clamp(min=0))
-    return torch.where(last >= 0, c, torch.zeros_like(c))
+    return c.masked_fill_(last < 0, 0)
 
 
 def _resolve(t: torch.Tensor):
     """Limbs in [0, 2^12] -> (canonical limbs, carry out of the top)."""
     c = _carries(t >> LIMB_BITS, t != MASK)
-    cin = torch.nn.functional.pad(c[..., :-1], (1, 0))
-    return (t + cin) & MASK, c[..., -1]
+    out = t.clone()
+    out[..., 1:] += c[..., :-1]
+    return out.bitwise_and_(MASK), c[..., -1]
 
 
 def carry_sweep(t: torch.Tensor, bound_bits: int = 63) -> torch.Tensor:
@@ -184,11 +194,10 @@ def carry_sweep(t: torch.Tensor, bound_bits: int = 63) -> torch.Tensor:
 def _sub_with_borrow(a: torch.Tensor, b: torch.Tensor):
     """a - b for canonical inputs -> (canonical diff mod 2^(12 L),
     borrow_out = 1 where a < b)."""
-    a, b = torch.broadcast_tensors(a, b)
     d = a - b
     c = _carries((d < 0).to(torch.int64), d != 0)
-    bin_ = torch.nn.functional.pad(c[..., :-1], (1, 0))
-    return (d - bin_) & MASK, c[..., -1]
+    d[..., 1:] -= c[..., :-1]
+    return d.bitwise_and_(MASK), c[..., -1]
 
 
 def _add_limbs(a: torch.Tensor, b: torch.Tensor):
@@ -273,3 +282,174 @@ def sub_small(a: torch.Tensor, k: int) -> torch.Tensor:
     kv = torch.zeros(a.shape[-1], dtype=torch.int64, device=a.device)
     kv[0] = int(k)
     return _sub_with_borrow(a.to(torch.int64), kv)[0]
+
+
+# ---------------------------------------------------------------------------
+# Montgomery arithmetic: the library form of the CIOS pipeline (K5–K7)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _redc_tables(value: int, L: int, device: str):
+    """Toeplitz matrices of N' = −N⁻¹ mod R (L × L) and of N
+    (L × 2L+1), float64 on `device`."""
+    R = 1 << (LIMB_BITS * L)
+    nprime = torch.as_tensor(
+        int_to_limbs((-pow(value, -1, R)) % R, L).astype(np.int64),
+        device=device)
+    n = torch.as_tensor(int_to_limbs(value, L).astype(np.int64),
+                        device=device)
+    return _toeplitz(nprime, L, L), _toeplitz(n, L, 2 * L + 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _antidiagonals(L: int, device: str) -> torch.Tensor:
+    """(L·L,) index i + j of the flattened outer product a_i·b_j."""
+    i = torch.arange(L, device=device)
+    return (i[:, None] + i[None, :]).reshape(-1)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lazy limbs of a·b for canonical (…, L) inputs: (…, 2L−1) int64,
+    each below L·2^24.  A shared operand is one Toeplitz matmul; two
+    batches are an outer product summed along its anti-diagonals."""
+    L = a.shape[-1]
+    if a.dim() == 1 and b.dim() > 1:
+        a, b = b, a
+    if b.dim() == 1:
+        T = _toeplitz(b, L, 2 * L - 1)
+        return torch.matmul(a.to(torch.float64), T).to(torch.int64)
+    bshape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    p = (a[..., :, None] * b[..., None, :]).expand(bshape + (L, L))
+    out = torch.zeros(bshape + (2 * L - 1,), dtype=torch.int64,
+                      device=a.device)
+    return out.index_add_(-1, _antidiagonals(L, str(a.device)),
+                          p.reshape(bshape + (L * L,)))
+
+
+def cond_sub_mod(t: torch.Tensor, mod: Modulus) -> torch.Tensor:
+    """t − N if t ≥ N else t, for canonical t < 2N with at least L
+    limbs."""
+    n = torch.nn.functional.pad(const(mod.limbs, t.device),
+                                (0, t.shape[-1] - mod.L))
+    diff, borrow = _sub_with_borrow(t, n)
+    return torch.where((borrow == 1)[..., None], t, diff)
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor, mod: Modulus) -> torch.Tensor:
+    """Montgomery product a·b·R⁻¹ mod N; a, b (…, L) canonical (< N),
+    broadcast against each other.  Output canonical (< N).  Plain
+    version of K5 (`kernels.montmul.montmul_tiled`)."""
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    L = mod.L
+    t_nprime, t_n = _redc_tables(mod.value, L, str(a.device))
+    T = torch.nn.functional.pad(_product(a, b), (0, 2))   # 2L + 1 limbs
+    T = _one_shot_carry(_one_shot_carry(T))                # limbs < 2^13
+    m = torch.matmul(T[..., :L].to(torch.float64), t_nprime).to(torch.int64)
+    m = carry_sweep(m, bound_bits=34)                      # T·N' mod R
+    mn = torch.matmul(m.to(torch.float64), t_n).to(torch.int64)
+    u = carry_sweep(T + mn, bound_bits=34)                 # ≡ 0 mod R
+    return cond_sub_mod(u[..., L:], mod)[..., :L]          # (T + mN)/R
+
+
+def to_mont(a: torch.Tensor, mod: Modulus) -> torch.Tensor:
+    return mont_mul(a, const(mod.r2, a.device), mod)
+
+
+def from_mont(a: torch.Tensor, mod: Modulus) -> torch.Tensor:
+    one = np.zeros(mod.L, np.uint32)
+    one[0] = 1
+    return mont_mul(a, const(one, a.device), mod)
+
+
+def limbs_to_bits(x: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Limb vector -> MSB-first bit vector of width nbits."""
+    L = x.shape[-1]
+    pos = np.arange(nbits - 1, -1, -1)
+    if (pos // LIMB_BITS >= L).any():
+        raise ValueError("nbits exceeds limb capacity")
+    idx = torch.as_tensor(pos // LIMB_BITS, device=x.device)
+    sh = torch.as_tensor(pos % LIMB_BITS, device=x.device)
+    return (x.to(torch.int64).index_select(-1, idx) >> sh) & 1
+
+
+def mont_exp_bits(base: torch.Tensor, bits, mod: Modulus) -> torch.Tensor:
+    """base^e in the Montgomery domain; bits MSB-first, broadcastable to
+    base's batch + (nbits,).  Constant-time in form (both products every
+    step, then a select).  Plain version of K6
+    (`kernels.montexp.mont_exp_tiled`)."""
+    base = base.to(torch.int64)
+    bits = torch.as_tensor(bits, device=base.device).to(torch.bool)
+    bshape = torch.broadcast_shapes(base.shape[:-1], bits.shape[:-1])
+    base = base.expand(bshape + base.shape[-1:])
+    acc = mont_one(mod, base.device).expand(base.shape)
+    for k in range(bits.shape[-1]):
+        sq = mont_mul(acc, acc, mod)
+        mul = mont_mul(sq, base, mod)
+        acc = torch.where(bits[..., k:k + 1], mul, sq)
+    return acc
+
+
+def mont_exp_const(base: torch.Tensor, e: int, mod: Modulus) -> torch.Tensor:
+    """base^e for a host-known exponent e ≥ 0 (key material: n, λ)."""
+    if e == 0:
+        return mont_one(mod, base.device).expand(base.shape)
+    bits = cached_bits(int(e), int(e).bit_length())
+    return mont_exp_bits(base, torch.as_tensor(bits.astype(np.int64)), mod)
+
+
+def tree_prod(c: torch.Tensor, mod: Modulus, dim: int) -> torch.Tensor:
+    """⊕-reduce axis `dim` of Montgomery residues in log depth, pairing
+    the first half with the second; the axis is dropped."""
+    while c.shape[dim] > 1:
+        half = c.shape[dim] // 2
+        merged = mont_mul(c.narrow(dim, 0, half), c.narrow(dim, half, half),
+                          mod)
+        if c.shape[dim] % 2:
+            merged = torch.cat([merged, c.narrow(dim, 2 * half, 1)], dim=dim)
+        c = merged
+    return c.squeeze(dim)
+
+
+def he_matvec_windowed(cts: torch.Tensor, digits: torch.Tensor,
+                       mod: Modulus, window: int) -> torch.Tensor:
+    """Fixed-window HE matvec (library form of the reference's
+    `protocols._he_matvec_windowed`): cts (…, n, L) Montgomery
+    ciphertexts, digits (…, n, m, levels) MSB-first window digits →
+    (…, m, L) ciphertexts of Σ_i exps[i,j]·m_i.  A 2^window power table
+    per row, then per level `window` squarings and a tree ⊕ of the
+    selected powers.  Plain version of K7 (`kernels.montexp`)."""
+    cts = cts.to(torch.int64)
+    digits = digits.to(device=cts.device, dtype=torch.int64)
+    n, L = cts.shape[-2:]
+    m, levels = digits.shape[-2:]
+    bshape = cts.shape[:-2]
+    one = mont_one(mod, cts.device)
+    table = [one.expand(cts.shape), cts]
+    for _ in range(2, 1 << window):
+        table.append(mont_mul(table[-1], cts, mod))
+    table = torch.stack(table, dim=-2)                     # (…, n, 2^w, L)
+    acc = one.expand(bshape + (m, L))
+    for lvl in range(levels):
+        for _ in range(window):
+            acc = mont_mul(acc, acc, mod)
+        idx = digits[..., lvl, None].expand(bshape + (n, m, L))
+        sel = torch.gather(table, -2, idx)                 # (…, n, m, L)
+        acc = mont_mul(acc, tree_prod(sel, mod, -3), mod)
+    return acc
+
+
+def he_matvec_bitserial(cts: torch.Tensor, bits: torch.Tensor,
+                        mod: Modulus) -> torch.Tensor:
+    """Bit-serial HE matvec (the reference's `_he_matvec_bitserial`):
+    cts (n, L), bits (n, m, width) MSB-first → (m, L)."""
+    cts = cts.to(torch.int64)
+    bits = bits.to(device=cts.device).to(torch.bool)
+    n, L = cts.shape
+    m = bits.shape[1]
+    one = mont_one(mod, cts.device)
+    acc = one.expand(m, L)
+    for k in range(bits.shape[-1]):
+        acc = mont_mul(acc, acc, mod)
+        sel = torch.where(bits[..., k, None], cts[:, None, :], one)
+        acc = mont_mul(acc, tree_prod(sel, mod, 0), mod)
+    return acc

@@ -16,7 +16,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.crypto import bigint, prng
+from repro_torch.crypto import bigint, fixed_base, prng
 from repro_torch.crypto.bigint import (LIMB_BITS, Modulus, add_small,
                                        as_limbs, big_mul_full, const,
                                        int_to_bits, int_to_limbs, mul_low,
@@ -106,6 +106,7 @@ class PrivateKey:
     crt_p: CRTComponent
     crt_q: CRTComponent
     q_pinv_mont: np.ndarray      # p^{-1}·R_q mod q (CRT combine)
+    noise_table: object = None   # fixed_base.FixedBaseTable (h^ρ noise)
 
 
 def _crt_component(prime: int, n: int) -> CRTComponent:
@@ -125,7 +126,8 @@ def _crt_component(prime: int, n: int) -> CRTComponent:
         mod_p=mod_p)
 
 
-def key_from_primes(p: int, q: int, key_bits: int) -> PrivateKey:
+def key_from_primes(p: int, q: int, key_bits: int, *,
+                    noise_table=None) -> PrivateKey:
     """The keypair of primes p, q (p < q after ordering), with every
     derived constant computed as keygen computes it."""
     if p > q:
@@ -147,12 +149,22 @@ def key_from_primes(p: int, q: int, key_bits: int) -> PrivateKey:
                               mod_n2.L),
         crt_p=_crt_component(p, n), crt_q=_crt_component(q, n),
         q_pinv_mont=int_to_limbs((pow(p, -1, q) * R_q) % q,
-                                 Modulus.make(q).L))
+                                 Modulus.make(q).L),
+        noise_table=noise_table)
 
 
-def keygen(key_bits: int, seed: int | None = None) -> PrivateKey:
+def keygen(key_bits: int, seed: int | None = None, *,
+           table_path: str | None = None,
+           table_window: int | None = None) -> PrivateKey:
     """Generate a Paillier keypair (`key_bits`: modulus size; the paper
-    uses 1024).  Same seed, same keys as the reference."""
+    uses 1024).  Same seed, same keys as the reference.
+
+    `table_path` also builds (or loads, when the file already holds this
+    keypair's table) the persistent fixed-base noise table and attaches
+    it as `PrivateKey.noise_table`; `protocols.PaillierBackend` then
+    draws encryption noise from it.  The table's unit x is drawn from the
+    keygen stream right after the primes, as in the reference, so the
+    same seed gives the same table."""
     rng = np.random.default_rng(seed)
     half = key_bits // 2
     while True:
@@ -160,7 +172,14 @@ def keygen(key_bits: int, seed: int | None = None) -> PrivateKey:
         q = gen_prime(key_bits - half, rng)
         if p != q and (p * q).bit_length() == key_bits:
             break
-    return key_from_primes(p, q, key_bits)
+    noise_table = None
+    if table_path is not None:
+        n = p * q
+        window = (fixed_base.DEFAULT_WINDOW if table_window is None
+                  else table_window)
+        noise_table, _ = fixed_base.ensure_table(
+            n, Modulus.make(n * n), table_path, window=window, rng=rng)
+    return key_from_primes(p, q, key_bits, noise_table=noise_table)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +224,22 @@ def noise_to_mont(pub: PublicKey, r_limbs, engine: CryptoEngine,
     """r -> r^n mod n², Montgomery domain."""
     rm = engine.to_mont(as_limbs(r_limbs, device), pub.mod_n2)
     return engine.mont_exp_const(rm, pub.n, pub.mod_n2)
+
+
+def noise_from_table(pub: PublicKey, table, rho_digits, engine: CryptoEngine,
+                     device) -> torch.Tensor:
+    """Table-backed encryption noise h^ρ mod n², Montgomery domain — the
+    short-exponent form of `noise_to_mont` (h = x^n is fixed at keygen,
+    ρ is fresh and short), from a `crypto.fixed_base.FixedBaseTable` in
+    one RNS round per digit level instead of an |n|-bit ladder.
+    `rho_digits`: (batch, levels) LSB-first window digits
+    (`fixed_base.draw_exponent_digits`)."""
+    if table.fingerprint != fixed_base.key_fingerprint(pub.n):
+        raise fixed_base.TableMismatchError(
+            "noise table was built for a different public key")
+    digits = torch.as_tensor(np.asarray(rho_digits).astype(np.int32),
+                             device=device)
+    return engine.fixed_base_exp(table, digits, pub.mod_n2)
 
 
 def encrypt_with_noise(pub: PublicKey, m_limbs, rn_mont,

@@ -21,13 +21,15 @@ is exact in any summation order (no TF32 path exists for float64).
 
 Conversions to and from radix-2^12 limbs (`to_rns`, `to_rns_scaled`,
 `from_rns`) are plain torch on the tensors' device.  The Montgomery
-round (`montmul_channels`), the ladder (`mont_exp_channels`) and the
-chunked windowed matvec (`he_matvec_partials`) are the plain versions
-of the CUDA kernels in `repro_torch.kernels`; both produce identical
-channel states.  The limb-level peers of the reference's `mont_mul`,
-`mont_exp_bits` and `he_matvec` are `kernels.ops.rns_montmul`,
-`rns_mont_exp` and `rns_he_matvec`, which reach these plain versions
-through the kernel wrappers when the tensors lie on the CPU.
+round (`montmul_channels`), the ladder (`mont_exp_channels`), the
+chunked windowed matvec (`he_matvec_partials`) and the fixed-base walk
+(`fixed_base_channels`) are the plain versions of the CUDA kernels
+K1–K4 in `repro_torch.kernels`; both produce identical channel states.
+The limb-level peers of the reference's `mont_mul`, `mont_exp_bits`,
+`he_matvec` and `fixed_base_exp` are `kernels.ops.rns_montmul`,
+`rns_mont_exp`, `rns_he_matvec` and `rns_fixed_base`, which reach these
+plain versions through the kernel wrappers when the tensors lie on the
+CPU (`fixed_base_exp` here is the plain limb-level form).
 """
 from __future__ import annotations
 
@@ -310,6 +312,34 @@ def he_matvec_partials(u: torch.Tensor, digits: torch.Tensor,
             prod = montmul_channels(prod, sel, ctx)
         acc = montmul_channels(acc, prod, ctx)
     return acc
+
+
+def fixed_base_channels(table: torch.Tensor, digits: torch.Tensor,
+                        ctx: RNSContext) -> torch.Tensor:
+    """Fixed-base walk on channel states: table (levels, 2^w, CH) holds
+    the ·B-domain states of h^(d·2^(w·lvl)); digits (batch, levels) are
+    LSB-first base-2^w digits of each exponent.  One round per level
+    folds the selected entry (digit 0 selects the state of one), then
+    one round against `exit` → (batch, CH) int32 states of h^e·R.  Plain
+    version of K4."""
+    d = ctx.tables(table.device)
+    digits = digits.to(torch.int64)
+    acc = d["one"].expand(digits.shape[0], ctx.CH)
+    for lvl in range(table.shape[0]):
+        acc = montmul_channels(acc, table[lvl][digits[:, lvl]], ctx)
+    return montmul_channels(acc, d["exit"], ctx)
+
+
+def fixed_base_exp(ctx: RNSContext, table: torch.Tensor,
+                   digits: torch.Tensor) -> torch.Tensor:
+    """Limb-level fixed-base exponentiation (the reference's
+    `rns.fixed_base_exp`): digits (..., levels) → (..., L) canonical
+    Montgomery-domain limbs of h^e·R."""
+    digits = torch.as_tensor(digits, device=table.device)
+    bshape = digits.shape[:-1]
+    flat = digits.reshape(-1, digits.shape[-1])
+    out = from_rns(ctx, fixed_base_channels(table, flat, ctx))
+    return out.reshape(tuple(bshape) + (ctx.L,))
 
 
 def tree_fold(states: torch.Tensor, round_fn) -> torch.Tensor:

@@ -6,12 +6,14 @@ arrays: callers pass the reference objects' fields).
   checks every numpy field it is given against the derived one.
 * `state_from_numpy` builds the port's `TrainState` from the fields of a
   reference `TrainState`.
+* `table_from_numpy` builds the port's `FixedBaseTable` from a reference
+  table's payload and identity fields, checking its header.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.crypto import paillier
+from repro_torch.crypto import fixed_base, paillier
 from repro_torch.runtime.session import TrainState, send_rows
 
 
@@ -51,3 +53,21 @@ def state_from_numpy(fields: dict) -> TrainState:
         meter_sends=send_rows(fields["meter_sends"]),
         rounds=int(fields["rounds"]),
         runtime_s=float(fields["runtime_s"]))
+
+
+def table_from_numpy(table_rns: np.ndarray, *, purpose: str, n: int,
+                     base: int, window: int, levels: int, L: int,
+                     header: dict | None = None
+                     ) -> fixed_base.FixedBaseTable:
+    """The port's fixed-base table from a reference table's `table_rns`
+    payload and fields.  A reference `header()` passed along must equal
+    the port table's own header; a mismatch raises
+    `fixed_base.TableMismatchError`."""
+    table = fixed_base.FixedBaseTable(
+        purpose=purpose, n=int(n), base=int(base), window=int(window),
+        levels=int(levels), L=int(L),
+        table_rns=np.asarray(table_rns, np.uint32))
+    if header is not None and dict(header) != table.header():
+        raise fixed_base.TableMismatchError(
+            f"table header {dict(header)} differs from {table.header()}")
+    return table

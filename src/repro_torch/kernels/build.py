@@ -21,7 +21,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("rns_montmul.cu", "rns_montexp.cu", "rns_matvec.cu")
+SOURCES = ("rns_montmul.cu", "rns_montexp.cu", "rns_matvec.cu",
+           "rns_fixedbase.cu", "cios_montmul.cu", "cios_montexp.cu",
+           "cios_matvec.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +36,12 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _P],
     "rns_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                           _I, _I, _I, _U, _P, _P, _P, _P, _P],
+    "rns_fixedbase_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                             _U, _P, _P, _P, _P, _P],
+    "cios_montmul_launch": [_P, _LL, _P, _LL, _P, _I, _P, _I, _U, _P],
+    "cios_montexp_launch": [_P, _P, _LL, _I, _P, _I, _P, _P, _I, _U, _P],
+    "cios_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                           _U, _P],
 }
 
 

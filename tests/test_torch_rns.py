@@ -25,7 +25,7 @@ from repro_torch.kernels import ops as tops
 RNG = np.random.default_rng(23)
 
 SMALL = [(1 << 61) - 1, (1 << 256) - 159, (1 << 512) - 569]
-PLAIN = tengine.make("torch")
+PLAIN = tengine.make("torch", pipeline="rns")   # this file: the RNS pipeline
 
 
 @pytest.fixture(scope="module")

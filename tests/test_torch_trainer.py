@@ -3,7 +3,12 @@ on the CPU equals the JAX package's `train_vfl` on losses, weights,
 per-tag bytes and rounds, bit for bit.
 
 Matrix: logistic and poisson × k ∈ {2, 3} with fixed CPs, each with the
-mock and the Paillier backend, plus random-CP runs.  Mock runs and the
+mock and the Paillier backend, plus random-CP runs.  The Paillier runs
+go three ways: the default routing (at 192-bit keys every modulus is
+below `RNS_MIN_BITS`, so the CIOS pipeline), the CIOS pipeline pinned
+with ``REPRO_CRYPTO_PIPELINE`` and fixed-base table noise from
+`keygen(table_path=…)` passed in as the backend; one run pins the RNS
+pipeline.  Mock runs and the
 random-CP Paillier run are compared with the reference's own runs of the
 same configuration.  For the fixed-CP Paillier runs the reference side
 is its mock run of the same configuration: with fixed CPs the reference
@@ -24,7 +29,11 @@ from repro.data import synthetic, vertical
 from repro.runtime.scheduler import VFLScheduler as JScheduler
 
 from repro_torch import interop
+from repro_torch.core import protocols as tprot
 from repro_torch.core import trainer as ttrainer
+from repro_torch.crypto import engine as tengine
+from repro_torch.crypto import paillier as tpai
+from repro_torch.kernels import ops as tops
 from repro_torch.runtime import scheduler as tsched
 
 
@@ -85,6 +94,54 @@ def test_paillier_run_equals_reference(glm, k, cp):
     res = _run_port(glm, k, "paillier", cp)
     _assert_equal(res, _run_ref(glm, k, "mock", cp))
     assert res.meter.by_tag["P3.enc_d"] > 0
+
+
+def _forbid(monkeypatch, module, *names):
+    """Make `module.<name>` raise: the run must not take that route."""
+    def refuse(*a, **k):
+        raise AssertionError("this run must not reach this route")
+    for name in names:
+        monkeypatch.setattr(module, name, refuse)
+
+
+@pytest.mark.parametrize("glm,k,cp", MATRIX[:4])
+def test_paillier_cios_pinned_run_equals_reference(glm, k, cp, monkeypatch):
+    monkeypatch.setenv(tengine.PIPELINE_ENV_VAR, "cios")
+    _forbid(monkeypatch, tops, "rns_montmul", "rns_mont_exp",
+            "rns_he_matvec", "rns_fixed_base")
+    _assert_equal(_run_port(glm, k, "paillier", cp),
+                  _run_ref(glm, k, "mock", cp))
+
+
+@pytest.fixture(scope="module")
+def table_keys(tmp_path_factory):
+    """192-bit keys of C, B1, B2 with persistent fixed-base noise tables."""
+    d = tmp_path_factory.mktemp("tables")
+    return {p: tpai.keygen(192, seed=50 + i, table_path=str(d / f"{p}.npz"))
+            for i, p in enumerate(("C", "B1", "B2"))}
+
+
+@pytest.mark.parametrize("glm,k,cp", MATRIX[:4])
+def test_paillier_table_noise_run_equals_reference(glm, k, cp, table_keys,
+                                                   monkeypatch):
+    _forbid(monkeypatch, tpai, "noise_to_mont")
+    X, y = _data(glm)
+    parties = _parties(ttrainer, X, k)
+    backend = tprot.PaillierBackend(
+        {p.name: table_keys[p.name] for p in parties},
+        np.random.default_rng(1), tengine.make("torch"), device="cpu")
+    assert set(backend.tables) == {p.name for p in parties}
+    cfg = ttrainer.VFLConfig(device="cpu", **_cfg_kw(glm, "paillier", cp))
+    _assert_equal(ttrainer.train_vfl(parties, y, cfg, backend=backend),
+                  _run_ref(glm, k, "mock", cp))
+
+
+def test_paillier_rns_pinned_run_equals_reference(monkeypatch):
+    """The RNS pipeline's plain path at small keys."""
+    monkeypatch.setenv(tengine.PIPELINE_ENV_VAR, "rns")
+    _forbid(monkeypatch, tops, "montmul", "mont_exp_fused", "he_matvec_fused")
+    _assert_equal(_run_port("logistic", 2, "paillier", "fixed"),
+                  _run_ref("logistic", 2, "mock", "fixed"))
 
 
 def test_paillier_random_cp_run_equals_reference_paillier_run(monkeypatch):
