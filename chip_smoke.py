@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
-Builds the seven CUDA kernels of `src/repro_torch/csrc/` with nvcc and
+Builds the eight CUDA kernels of `src/repro_torch/csrc/` with nvcc and
 holds each against its plain PyTorch version at the training path's
-shapes (exact equality of channel states and limbs), checks 1024-bit
-Paillier on the card on both arithmetic pipelines, then drives
-Algorithm 1 training at the paper's Table 1 configuration
+shapes (exact equality of channel states and limbs; K8, the Z_2^64
+matrix product, at four shapes up to 2048³ and on all-ones operands),
+checks 1024-bit Paillier on the card on both arithmetic pipelines,
+then drives Algorithm 1 training at the paper's Table 1 configuration
 (credit-default twin, 2 parties × 12 features, batch 2048, 1024-bit
 keys) through `repro_torch.core.trainer.train_vfl` three ways:
 
@@ -20,9 +21,16 @@ keys) through `repro_torch.core.trainer.train_vfl` three ways:
 each against the mock backend (losses, weights, per-tag bytes and rounds
 bit for bit), and checks that every kernel of each path launched.  Then
 a crossover probe times the RNS and CIOS Montgomery products at 256 to
-2048 bits.  Prints one JSON line of kernel numbers, the card's name and
-power limit, and ends with a JSON line naming the device.  Any failed
-phase exits non-zero.
+2048 bits, and the port's crypto kernel benchmark
+(`repro_torch.bench.kernel_bench`, the rows of ``python -m
+repro_torch.bench.run --only kernels``) runs at full size: every row
+must finish with a finite time and an output equal to its plain
+computation (the CIOS kernels at L = 22 and 43 among them), and K1–K8
+must each launch.  Its guard rows are printed, not enforced: they encode the reference's
+CPU-interpret routing figures, which are measured here, not assumed.
+Prints one JSON line of kernel numbers, the card's name and power
+limit, and ends with a JSON line naming the device.  Any failed phase
+exits non-zero.
 """
 from __future__ import annotations
 
@@ -60,6 +68,8 @@ KERNELS = {
                  "src/repro/kernels/montexp.py:74"),
     "he_matvec": ("src/repro_torch/csrc/cios_matvec.cu",
                   "src/repro/kernels/montexp.py:151"),
+    "ring_matmul": ("src/repro_torch/csrc/ring_matmul.cu",
+                    "src/repro/kernels/ring_matmul.py:82"),
 }
 # kernel symbol of each wrapper, for the profiler's tables
 SYMBOLS = {"rns_montmul": "rns_montmul_kernel",
@@ -68,7 +78,8 @@ SYMBOLS = {"rns_montmul": "rns_montmul_kernel",
            "rns_fixed_base": "rns_fixedbase_kernel",
            "montmul": "cios_montmul_kernel",
            "mont_exp": "cios_montexp_kernel",
-           "he_matvec": "cios_matvec_kernel"}
+           "he_matvec": "cios_matvec_kernel",
+           "ring_matmul": "ring_matmul_kernel"}
 
 
 def log(*a):
@@ -82,14 +93,15 @@ def fail(msg: str, code: int = 1):
 
 def wrappers() -> dict:
     """Each kernel's wrapper (its `.launches` is the launch count)."""
-    from repro_torch.kernels import montexp, montmul
+    from repro_torch.kernels import montexp, montmul, ring_matmul
     return {"rns_montmul": montmul.rns_montmul_tiled,
             "rns_mont_exp": montexp.rns_mont_exp_tiled,
             "rns_he_matvec": montexp.rns_he_matvec_tiled,
             "rns_fixed_base": montexp.rns_fixed_base_tiled,
             "montmul": montmul.montmul_tiled,
             "mont_exp": montexp.mont_exp_tiled,
-            "he_matvec": montexp.he_matvec_tiled}
+            "he_matvec": montexp.he_matvec_tiled,
+            "ring_matmul": ring_matmul.ring_matmul_tiled}
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -140,6 +152,16 @@ def cios_bound(bytes_moved: float, products: float, squares: float,
         / INT8_TC_OPS_PER_S * 1e3
     t_ops = max(t_int32, t_tc)
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ring_bound(M: int, K: int, N: int) -> tuple[float, str]:
+    """Least time of an (M, K) x (K, N) product over Z_2^64: the R64
+    words (16 bytes an element of A, B and C) at the HBM rate, or the
+    TPU design's 36 8-bit limb products of weight below 2^64 on the int8
+    tensor cores (2 operations a multiply-add); the larger one."""
+    t_bytes = 16 * (M * K + K * N + M * N) / HBM_BYTES_PER_S * 1e3
+    t_ops = 36 * 2 * M * K * N / INT8_TC_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -449,6 +471,55 @@ def phase_cios_kernels(mod_n2, mod_p2, results):
         f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bd:.4f} ms ({by})")
 
 
+def phase_ring_matmul(results):
+    """K8 against its plain version, max abs err 0 on the uint64 values:
+    the benchmark's row, Table 1's X^T·<d> shape, a shape that fills the
+    card, K above the reference's 2^15 chunk, and all-ones operands
+    (every partial sum carries) whose products must equal K."""
+    import numpy as np
+    from repro_torch.crypto import ring
+    from repro_torch.kernels import ring_matmul as rm
+    gen = np.random.default_rng(19)
+    top = np.uint64((1 << 64) - 1)
+    errs = []
+    for (M, K, N), all_ones in (((128, 256, 64), False),
+                                ((12, 2048, 1), False),
+                                ((2048, 2048, 2048), False),
+                                ((130, 40000, 10), False),
+                                ((128, 40000, 64), True)):
+        if all_ones:
+            A, B = np.full((M, K), top), np.full((K, N), top)
+        else:
+            A = gen.integers(0, 1 << 64, (M, K), dtype=np.uint64)
+            B = gen.integers(0, 1 << 64, (K, N), dtype=np.uint64)
+        a, b = ring.from_numpy_u64(A, "cuda"), ring.from_numpy_u64(B, "cuda")
+        args = (a.hi, a.lo, b.hi, b.lo)
+        got = ring.to_numpy_u64(ring.R64(*rm.ring_matmul_tiled(*args)))
+        want = ring.to_numpy_u64(ring.R64(*rm.ring_matmul_plain(*args)))
+        label = "all-ones " if all_ones else ""
+        err = float(np.max(np.maximum(got, want) - np.minimum(got, want)))
+        if got.shape != (M, N) or err != 0:
+            fail(f"ring_matmul {label}{M}x{K}x{N}: kernel differs from the "
+                 f"plain version (max abs err {err})")
+        # (2^64 - 1)^2 = 1 mod 2^64, so every entry is K
+        if all_ones and not (got == K).all():
+            fail(f"ring_matmul all-ones {M}x{K}x{N}: entries are not K")
+        errs.append(err)
+        big = M * K * N >= 1 << 30
+        ms = time_ms(lambda: rm.ring_matmul_tiled(*args), 5 if big else 50)
+        plain_ms = time_ms(lambda: rm.ring_matmul_plain(*args),
+                           3 if big else 20)
+        bd, by = ring_bound(M, K, N)
+        log(f"[kernels] ring_matmul {label}{M}x{K}x{N}: equal; {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bd:.5f} ms ({by})")
+        entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bd, bound_by=by)
+        results.setdefault("_ring_matmul", {})[
+            f"{label}{M}x{K}x{N}"] = entry
+        if (M, K, N) == (2048, 2048, 2048):
+            results["ring_matmul"] = dict(entry)
+    results["ring_matmul"]["max_abs_err"] = max(errs)
+
+
 def phase_paillier(priv, pipeline: str):
     import numpy as np
     from repro_torch.core import protocols
@@ -748,6 +819,40 @@ def phase_probe(results):
     results["_probe"] = rows
 
 
+def phase_bench(results):
+    """The crypto kernel benchmark at full size, counted: every row a
+    finite time and an output equal to its plain computation (kernel and
+    engine rows to their library rows, `kernel_bench.run` checks), K1–K8
+    each launched; guard violations are printed."""
+    import math
+    from repro_torch.bench import kernel_bench
+    try:
+        rows, launches, wall, peak = counted_run(
+            lambda: kernel_bench.run(smoke=False, device="cuda"))
+    except kernel_bench.OutputMismatch as e:
+        fail(f"bench: outputs differ from their plain computations: {e}")
+    for r in rows:
+        log(f"[bench] {r['name']},{r['us']:.1f},{r['derived']},"
+            f"{r['backend']}")
+        if not (math.isfinite(r["us"]) and r["us"] > 0):
+            fail(f"bench: row {r['name']} has time {r['us']}")
+    require("bench", launches, positive=tuple(KERNELS))
+    results.setdefault("ring_matmul", {})["launches"] = \
+        launches["ring_matmul"]
+    failures = kernel_bench.check_guards(rows)
+    guards = [r["name"] for r in rows if r.get("guard_vs")]
+    log(f"[bench] {len(rows)} rows in {wall:.1f} s, every output equal "
+        f"to its plain computation; peak device memory "
+        f"{peak / 2**20:.1f} MiB; kernel launches {launches}")
+    log(f"[bench] guards: {len(guards) - len(failures)} of {len(guards)} "
+        "hold (reported, not enforced)")
+    for f in failures:
+        log(f"[bench] guard violation: {f}")
+    results["_bench"] = dict(wall_s=wall, launches=launches,
+                             guard_failures=failures,
+                             rows={r["name"]: r["us"] for r in rows})
+
+
 def main():
     try:
         import torch
@@ -770,6 +875,7 @@ def main():
     results = {}
     phase_rns_kernels(ctx_n2, ctx_p2, results)
     phase_cios_kernels(priv.pub.mod_n2, priv.crt_p.mod_p2, results)
+    phase_ring_matmul(results)
     phase_paillier(priv, "rns")
     phase_paillier(priv, "cios")
     from repro_torch.core.trainer import VFLConfig, train_vfl
@@ -779,6 +885,7 @@ def main():
     phase_path_a(results, mock)
     phase_path_b(results, mock)
     phase_probe(results)
+    phase_bench(results)
     summary = {k: results.pop(k) for k in list(results) if k[0] == "_"}
     kernels = []
     for name, (src, replaces) in KERNELS.items():

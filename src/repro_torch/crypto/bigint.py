@@ -148,6 +148,19 @@ def as_limbs(x, device=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
 
 
+def flatten_batch(x: torch.Tensor, bshape, width: int) -> torch.Tensor:
+    """x broadcast to `bshape` + (width,), as (prod(bshape), width)
+    contiguous rows."""
+    n = int(np.prod(bshape)) if bshape else 1
+    return x.expand(tuple(bshape) + (width,)).reshape(n, width).contiguous()
+
+
+def shared_last(a: torch.Tensor, b: torch.Tensor):
+    """Order a product's operands so that one without batch dims comes
+    second (it then enters a kernel as one shared row)."""
+    return (b, a) if a.dim() == 1 and b.dim() > 1 else (a, b)
+
+
 # ---------------------------------------------------------------------------
 # Carry / borrow resolution (vectorized over the limb axis)
 # ---------------------------------------------------------------------------

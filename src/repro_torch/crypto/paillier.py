@@ -261,6 +261,20 @@ def encrypt(pub: PublicKey, m_limbs, engine: CryptoEngine,
                               engine)
 
 
+def decrypt(priv: PrivateKey, c_mont, engine: CryptoEngine) -> torch.Tensor:
+    """Decryption without the CRT: m = L(c^λ mod n²) · μ mod n, one
+    ladder on n² with the |λ|-bit exponent.  Returns plaintext limbs
+    (…, Ln), identical to `decrypt_crt`'s."""
+    pub = priv.pub
+    c = as_limbs(c_mont)
+    dev = c.device
+    u_m = engine.mont_exp_bits(c, priv.lam_bits, pub.mod_n2)
+    u = engine.from_mont(u_m, pub.mod_n2)
+    um1 = sub_small(u, 1)
+    k = mul_low(um1, const(priv.hensel_n, dev), pub.Ln2)[..., :pub.Ln]
+    return engine.mont_mul(k, const(priv.mu_mont, dev), pub.mod_n)
+
+
 def _dec_component(comp: CRTComponent, c_modp2_mont,
                    eng: CryptoEngine) -> torch.Tensor:
     """m_p = L_p(c^{p-1} mod p²) · h_p mod p."""

@@ -330,6 +330,24 @@ def fixed_base_channels(table: torch.Tensor, digits: torch.Tensor,
     return montmul_channels(acc, d["exit"], ctx)
 
 
+def mont_mul(ctx: RNSContext, a: torch.Tensor, b: torch.Tensor,
+             round_fn=montmul_channels) -> torch.Tensor:
+    """Limb-level RNS Montgomery product (the reference's `rns.mont_mul`):
+    a·b·R⁻¹ mod N for canonical limbs a, b (..., L), broadcast.  `to_rns`
+    of a, `to_rns_scaled` of b (pre-scaled by B·R⁻¹, so one round gives
+    a·b·R⁻¹), one round, `from_rns`.  `round_fn(x, y, ctx)` is the round
+    on flat channel states: the plain `montmul_channels`, or K1's wrapper
+    `kernels.montmul.rns_montmul_tiled` (`kernels.ops.rns_montmul`).  A
+    `b` without batch dims enters the round as one shared state."""
+    a, b = bigint.shared_last(a, b)
+    bshape = tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+    x = to_rns(ctx, bigint.flatten_batch(a, bshape, ctx.L))
+    y = to_rns_scaled(ctx, b if b.dim() == 1
+                      else bigint.flatten_batch(b, bshape, ctx.L))
+    t = round_fn(x.contiguous(), y.contiguous(), ctx)
+    return from_rns(ctx, t).reshape(bshape + (ctx.L,))
+
+
 def fixed_base_exp(ctx: RNSContext, table: torch.Tensor,
                    digits: torch.Tensor) -> torch.Tensor:
     """Limb-level fixed-base exponentiation (the reference's

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("rns_montmul.cu", "rns_montexp.cu", "rns_matvec.cu",
            "rns_fixedbase.cu", "cios_montmul.cu", "cios_montexp.cu",
-           "cios_matvec.cu")
+           "cios_matvec.cu", "ring_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +42,7 @@ _SIGNATURES = {
     "cios_montexp_launch": [_P, _P, _LL, _I, _P, _I, _P, _P, _I, _U, _P],
     "cios_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                            _U, _P],
+    "ring_matmul_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

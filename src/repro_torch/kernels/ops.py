@@ -1,15 +1,15 @@
 """Limb-level wrappers around the kernels: broadcasting, flattening,
 row padding, the limbs ↔ channels conversions of the RNS pipeline and
-the chunk combines.
+the chunk combines; and the Z_2^64 matrix product on R64 shares.
 
 Same contracts as the reference's `repro/kernels/ops.py` wrappers, CIOS
-(`montmul`, `mont_exp_fused`, `he_matvec_fused`) and RNS (`rns_*`):
-canonical radix-2^12 limbs in, canonical limbs out, bit-exact against
-the limb library.  Every product goes through a kernel wrapper
-(`kernels.montmul`, `kernels.montexp`), which launches its CUDA kernel
-for CUDA tensors and runs its plain version for CPU tensors.  The
-kernels take ragged batches, so only the matvecs pad (rows, to a
-multiple of the chunk).
+(`montmul`, `mont_exp_bits`, `mont_exp_fused`, `he_matvec_fused`), RNS
+(`rns_*`) and `ring_matmul`: canonical radix-2^12 limbs in, canonical
+limbs out, bit-exact against the limb library.  Every product goes
+through a kernel wrapper (`kernels.montmul`, `kernels.montexp`,
+`kernels.ring_matmul`), which launches its CUDA kernel for CUDA tensors
+and runs its plain version for CPU tensors.  The kernels take ragged
+batches, so only the matvecs pad (rows, to a multiple of the chunk).
 """
 from __future__ import annotations
 
@@ -18,25 +18,16 @@ import torch
 
 from repro_torch.crypto import bigint, rns
 from repro_torch.crypto.bigint import Modulus
+from repro_torch.crypto.ring import R64
 from repro_torch.kernels import montexp
 from repro_torch.kernels import montmul as montmul_k
+from repro_torch.kernels import ring_matmul as ringmm_k
 
 
 #: rows per block of the HE matvecs (K3, K7): the rows fold in chunks
 #: whose partials ⊕-combine; 16 gives 128 blocks for a 2048-row batch,
 #: about one per SM of an H100
 MATVEC_CHUNK = 16
-
-
-def _flat(x: torch.Tensor, bshape, width: int) -> torch.Tensor:
-    n = int(np.prod(bshape)) if bshape else 1
-    return x.expand(tuple(bshape) + (width,)).reshape(n, width).contiguous()
-
-
-def _shared_last(a: torch.Tensor, b: torch.Tensor):
-    """Order a product's operands so that one without batch dims comes
-    second (it then enters the kernel as one shared row)."""
-    return (b, a) if a.dim() == 1 and b.dim() > 1 else (a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -46,12 +37,32 @@ def _shared_last(a: torch.Tensor, b: torch.Tensor):
 def montmul(a: torch.Tensor, b: torch.Tensor, mod: Modulus) -> torch.Tensor:
     """Batched CIOS Montgomery product a·b·R⁻¹ mod N; a, b (..., L)
     canonical limbs, broadcast."""
-    a, b = _shared_last(a, b)
+    a, b = bigint.shared_last(a, b)
     bshape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    x = _flat(a, bshape, mod.L)
-    y = b.contiguous() if b.dim() == 1 else _flat(b, bshape, mod.L)
+    x = bigint.flatten_batch(a, bshape, mod.L)
+    y = b.contiguous() if b.dim() == 1 \
+        else bigint.flatten_batch(b, bshape, mod.L)
     out = montmul_k.montmul_tiled(x, y, mod)
     return out.reshape(tuple(bshape) + (mod.L,))
+
+
+def mont_exp_bits(base: torch.Tensor, bits, mod: Modulus) -> torch.Tensor:
+    """Per-step CIOS ladder base^e (Montgomery domain), the contract of
+    `bigint.mont_exp_bits`: 2×nbits separate `montmul` launches (K5 on
+    the card), kept as the baseline the fused ladder (K6) is benchmarked
+    against.  bits: (..., nbits) MSB-first 0/1, broadcast against base's
+    batch."""
+    if not isinstance(bits, torch.Tensor):
+        bits = torch.as_tensor(np.asarray(bits, np.int64))
+    bits = bits.to(device=base.device, dtype=torch.bool)
+    bshape = torch.broadcast_shapes(base.shape[:-1], bits.shape[:-1])
+    base = base.expand(tuple(bshape) + (mod.L,))
+    acc = bigint.mont_one(mod, base.device).expand(base.shape)
+    for k in range(bits.shape[-1]):
+        acc = montmul(acc, acc, mod)
+        mul = montmul(acc, base, mod)
+        acc = torch.where(bits[..., k:k + 1], mul, acc)
+    return acc
 
 
 def mont_exp_fused(base: torch.Tensor, bits: torch.Tensor,
@@ -60,9 +71,9 @@ def mont_exp_fused(base: torch.Tensor, bits: torch.Tensor,
     (..., nbits) MSB-first int32, or one shared (nbits,) exponent."""
     bits = bits.to(device=base.device, dtype=torch.int32)
     bshape = torch.broadcast_shapes(base.shape[:-1], bits.shape[:-1])
-    u = _flat(base, bshape, mod.L)
-    bits = _flat(bits, bshape, bits.shape[-1]) if bits.dim() > 1 \
-        else bits.contiguous()
+    u = bigint.flatten_batch(base, bshape, mod.L)
+    bits = bigint.flatten_batch(bits, bshape, bits.shape[-1]) \
+        if bits.dim() > 1 else bits.contiguous()
     out = montexp.mont_exp_tiled(u, bits, mod)
     return out.reshape(tuple(bshape) + (mod.L,))
 
@@ -106,17 +117,10 @@ def he_matvec_fused(cts: torch.Tensor, digits: torch.Tensor, mod: Modulus,
 def rns_montmul(a: torch.Tensor, b: torch.Tensor,
                 mod: Modulus) -> torch.Tensor:
     """Batched Montgomery product a·b·R⁻¹ mod N; a, b (..., L) broadcast.
-    A `b` without batch dims enters the kernel as one shared state."""
-    ctx = rns.for_modulus(mod)
-    a, b = _shared_last(a, b)
-    bshape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    x = rns.to_rns(ctx, _flat(a, bshape, mod.L))
-    if b.dim() == 1:
-        y = rns.to_rns_scaled(ctx, b)
-    else:
-        y = rns.to_rns_scaled(ctx, _flat(b, bshape, mod.L))
-    t = montmul_k.rns_montmul_tiled(x, y, ctx)
-    return rns.from_rns(ctx, t).reshape(tuple(bshape) + (mod.L,))
+    `rns.mont_mul` with its round on K1: a `b` without batch dims enters
+    the kernel as one shared state."""
+    return rns.mont_mul(rns.for_modulus(mod), a, b,
+                        round_fn=montmul_k.rns_montmul_tiled)
 
 
 def rns_mont_exp(base: torch.Tensor, bits: torch.Tensor,
@@ -126,9 +130,9 @@ def rns_mont_exp(base: torch.Tensor, bits: torch.Tensor,
     ctx = rns.for_modulus(mod)
     bits = bits.to(device=base.device, dtype=torch.int32)
     bshape = torch.broadcast_shapes(base.shape[:-1], bits.shape[:-1])
-    u = rns.to_rns_scaled(ctx, _flat(base, bshape, mod.L))
+    u = rns.to_rns_scaled(ctx, bigint.flatten_batch(base, bshape, mod.L))
     if bits.dim() > 1:
-        bits = _flat(bits, bshape, bits.shape[-1])
+        bits = bigint.flatten_batch(bits, bshape, bits.shape[-1])
     t = montexp.rns_mont_exp_tiled(u, bits.contiguous(), ctx)
     return rns.from_rns(ctx, t).reshape(tuple(bshape) + (mod.L,))
 
@@ -174,6 +178,20 @@ def rns_fixed_base(table: torch.Tensor, digits: torch.Tensor, mod: Modulus,
     ctx = rns.for_modulus(mod)
     digits = digits.to(device=table.device, dtype=torch.int32)
     bshape = digits.shape[:-1]
-    d2 = _flat(digits, bshape, digits.shape[-1])
+    d2 = bigint.flatten_batch(digits, bshape, digits.shape[-1])
     t = montexp.rns_fixed_base_tiled(table, d2, ctx, window=window)
     return rns.from_rns(ctx, t).reshape(tuple(bshape) + (mod.L,))
+
+
+# ---------------------------------------------------------------------------
+# Z_2^64 matrix product (K8)
+# ---------------------------------------------------------------------------
+
+def ring_matmul(a: R64, b: R64) -> R64:
+    """(M, K) @ (K, N) over Z_2^64 on R64 shares, any M, K, N ≥ 1.  CPU
+    tensors take the plain version, CUDA tensors the kernel (K8), in one
+    launch whatever K: its 64-bit sums wrap exactly, so nothing pads M or
+    N and nothing chunks K.  Operands on different devices raise."""
+    hi, lo = ringmm_k.ring_matmul_tiled(a.hi.contiguous(), a.lo.contiguous(),
+                                        b.hi.contiguous(), b.lo.contiguous())
+    return R64(hi, lo)

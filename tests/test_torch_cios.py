@@ -125,6 +125,26 @@ def test_cios_wrappers_match_reference(n):
                             tm).numpy(), want)
 
 
+@pytest.mark.parametrize("n", MODS, ids=["128", "256"])
+def test_per_step_ladder_matches_reference(n, monkeypatch):
+    """`ops.mont_exp_bits`, the per-step ladder (2 × nbits K5 products),
+    equals the reference's `bigint.mont_exp_bits`, per-row and shared
+    exponents alike."""
+    jm, tm = jbig.Modulus.make(n), tbig.Modulus.make(n)
+    base = limbs(residues(n, 5), jm.L)
+    bits = RNG.integers(0, 2, size=(5, 11)).astype(np.uint32)
+    calls = []
+    product = montmul.montmul_tiled
+    monkeypatch.setattr(montmul, "montmul_tiled",
+                        lambda *a: calls.append(1) or product(*a))
+    for e in (bits, bits[2]):
+        want = np.asarray(jbig.mont_exp_bits(jnp.asarray(base),
+                                             jnp.asarray(e), jm))
+        got = tops.mont_exp_bits(as_t(base), e, tm)
+        assert np.array_equal(got.numpy(), want)
+    assert len(calls) == 2 * 2 * bits.shape[-1]
+
+
 # ---------------------------------------------------------------------------
 # the HE matvec: library ladders, the reference's K5–K7 in interpret mode
 # ---------------------------------------------------------------------------

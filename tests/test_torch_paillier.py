@@ -1,8 +1,10 @@
 """Port parity, Paillier: the same seed gives the same keys, encryption
-with identical noise gives identical ciphertext limbs, ⊕ agrees, and the
-port's CRT decryption recovers the plaintexts (CPU, plain versions)."""
+with identical noise gives identical ciphertext limbs, ⊕ agrees, the
+port's CRT decryption recovers the plaintexts and its decryption without
+the CRT gives the reference's limbs (CPU, plain versions)."""
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -59,3 +61,20 @@ def test_encrypt_add_decrypt_match_reference():
     assert np.array_equal(np.asarray(s_j), s_t.numpy())
     assert tpai.decode_ints(tpai.decrypt_crt(tk, s_t, ENG)) == \
         [(a + b) % pub.n for a, b in zip(ms, ms[::-1])]
+
+
+@pytest.mark.parametrize("bits,seed", [(128, 5), (256, 3)])
+def test_decrypt_matches_reference(bits, seed):
+    """Decryption without the CRT (one λ ladder on n²) gives the
+    reference's plaintext limbs on the same ciphertexts, and the CRT
+    decryption's."""
+    jk, tk = jpai.keygen(bits, seed=seed), tpai.keygen(bits, seed=seed)
+    ms = [0, 1, 987654321, tk.pub.n - 1, tk.pub.n // 3]
+    c_j = jpai.encrypt(jk.pub, jpai.encode_ints(jk.pub, ms),
+                       rng=np.random.default_rng(seed))
+    c_t = torch.as_tensor(np.asarray(c_j).astype(np.int64))
+    want = np.asarray(jpai.decrypt(jk, c_j))
+    got = tpai.decrypt(tk, c_t, ENG)
+    assert np.array_equal(got.numpy(), want)
+    assert tpai.decode_ints(got) == ms
+    assert torch.equal(got, tpai.decrypt_crt(tk, c_t, ENG))
