@@ -4,8 +4,11 @@
 
 Builds the eight CUDA kernels of `src/repro_torch/csrc/` with nvcc and
 holds each against its plain PyTorch version at the training path's
-shapes (exact equality of channel states and limbs; K8, the Z_2^64
-matrix product, at four shapes up to 2048³ and on all-ones operands),
+shapes (exact equality of channel states and limbs; K2, the RNS ladder,
+at every row count its launch shape branches on, on both contexts of a
+1024-bit key, with per-row and shared bits and on extreme states, K1 on
+extreme states too; K8, the Z_2^64 matrix product, at four shapes up to
+2048³ and on all-ones operands),
 checks 1024-bit Paillier on the card on both arithmetic pipelines,
 then drives Algorithm 1 training at the paper's Table 1 configuration
 (credit-default twin, 2 parties × 12 features, batch 2048, 1024-bit
@@ -253,23 +256,45 @@ def phase_rns_kernels(ctx_n2, ctx_p2, results):
             fail(f"{name}: limbs after from_rns differ")
         return _max_err(got, want)
 
-    # K1 at (2048, CH of n²)
+    def extreme(ctx, rows, top):
+        """States with every residue at m_c - 1 (the round's largest
+        operands) or all zero: outside the value contract, where kernel
+        and plain version must still agree channel for channel."""
+        mods = torch.as_tensor(ctx.all_mods.astype(np.int64), device=dev)
+        row = (mods - 1) if top else torch.zeros_like(mods)
+        return row.to(torch.int32).expand(rows, ctx.CH).contiguous()
+
+    # K1 at (2048, CH of n²); with a shared operand; on extreme states of
+    # both contexts
     ctx = ctx_n2
     x = _random_states(ctx, 2048, gen, dev)
     y = _random_states(ctx, 2048, gen, dev)
     got = montmul.rns_montmul_tiled(x, y, ctx)
     want = montmul.plain(x, y, ctx)
     err = compare("rns_montmul (2048, %d)" % ctx.CH, got, want, ctx)
+    compare("rns_montmul (2048, %d) x shared state" % ctx.CH,
+            montmul.rns_montmul_tiled(x, y[0].contiguous(), ctx),
+            montmul.plain(x, y[0], ctx), ctx)
+    for c in (ctx_n2, ctx_p2):
+        r = _random_states(c, 9, gen, dev)
+        for a, b, label in ((extreme(c, 9, True), extreme(c, 9, True),
+                             "all m-1 x all m-1"),
+                            (extreme(c, 9, False), r, "zero x random"),
+                            (extreme(c, 9, True), r, "all m-1 x random")):
+            compare(f"rns_montmul (9, {c.CH}) {label}",
+                    montmul.rns_montmul_tiled(a, b, c), montmul.plain(a, b, c),
+                    c)
     ms = time_ms(lambda: montmul.rns_montmul_tiled(x, y, ctx), 20)
     plain_ms = time_ms(lambda: montmul.plain(x, y, ctx), 5)
     b, by = bound(3 * 2048 * ctx.CH * 4, 2048, ctx)
     results["rns_montmul"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b, bound_by=by)
-    log(f"[kernels] rns_montmul (2048, {ctx.CH}): equal; {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b:.5f} ms ({by})")
+    log(f"[kernels] rns_montmul (2048, {ctx.CH}): equal (and shared, and "
+        f"extreme states at CH {ctx_n2.CH} and {ctx_p2.CH}); {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by})")
 
-    # K2 at (256, CH of n²) with 1024-bit exponents, and (12, CH of p²)
-    # with one shared 512-bit exponent (the CRT-decrypt shape)
+    # K2 at (256, CH of n²) with per-row 1024-bit exponents, timed against
+    # the plain ladder
     u = _random_states(ctx, 256, gen, dev)
     bits = torch.as_tensor(gen.integers(0, 2, size=(256, 1024)),
                            dtype=torch.int32, device=dev)
@@ -284,34 +309,56 @@ def phase_rns_kernels(ctx_n2, ctx_p2, results):
     b, by = bound(2 * 256 * ctx.CH * 4 + bits.numel() * 4,
                   256 * (2 * 1024 + 1), ctx)
     results["rns_mont_exp"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=b, bound_by=by)
+                                   bound_ms=b, bound_by=by, shapes=[])
     log(f"[kernels] rns_mont_exp (256, {ctx.CH}) x 1024 bits: equal; "
         f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.5f} ms ({by})")
-    ctxp = ctx_p2
-    up = _random_states(ctxp, 12, gen, dev)
-    bitsp = torch.as_tensor(gen.integers(0, 2, size=512), dtype=torch.int32,
+    # every row count the launch shape branches on (rows a block 1..16,
+    # one or two n-tiles, a ragged last block), both contexts, per-row and
+    # shared bits, on 48-bit exponents
+    nsweep = 0
+    for c in (ctx_n2, ctx_p2):
+        for rows in (1, 7, 8, 9, 12, 16, 17, 256, 2048):
+            us = _random_states(c, rows, gen, dev)
+            per_row = torch.as_tensor(gen.integers(0, 2, size=(rows, 48)),
+                                      dtype=torch.int32, device=dev)
+            for e in (per_row, per_row[0].contiguous()):
+                compare(f"rns_mont_exp ({rows}, {c.CH}) x 48 "
+                        f"{'shared' if e.dim() == 1 else 'per-row'} bits",
+                        montexp.rns_mont_exp_tiled(us, e, c),
+                        montexp.plain_ladder(us, e, c), c)
+                nsweep += 1
+        for top in (True, False):
+            for rows in (1, 9):
+                us = extreme(c, rows, top)
+                e = torch.as_tensor(gen.integers(0, 2, size=(rows, 48)),
+                                    dtype=torch.int32, device=dev)
+                compare(f"rns_mont_exp ({rows}, {c.CH}) "
+                        f"{'all m-1' if top else 'all zero'} x 48 bits",
+                        montexp.rns_mont_exp_tiled(us, e, c),
+                        montexp.plain_ladder(us, e, c), c)
+                nsweep += 1
+    log(f"[kernels] rns_mont_exp: {nsweep} ladders equal to the plain "
+        f"version (rows 1, 7, 8, 9, 12, 16, 17, 256, 2048 at CH "
+        f"{ctx_n2.CH} and {ctx_p2.CH}, per-row and shared bits; all m-1 "
+        f"and all-zero states)")
+    # the main path's own K2 shapes, every row checked and timed: r^n noise
+    # (2048 rows) and masks (12 rows) of n², one shared 1024-bit exponent;
+    # CRT decryption (12 rows of p², one shared 512-bit exponent)
+    for c, rows, nb in ((ctx_n2, 2048, 1024), (ctx_n2, 12, 1024),
+                        (ctx_p2, 12, 512)):
+        e = torch.as_tensor(gen.integers(0, 2, size=nb), dtype=torch.int32,
                             device=dev)
-    bitsp[0] = 1
-    got = montexp.rns_mont_exp_tiled(up, bitsp, ctxp)
-    want = montexp.plain_ladder(up, bitsp, ctxp)
-    compare("rns_mont_exp (12, %d) x 512 shared bits" % ctxp.CH, got, want,
-            ctxp)
-    msp = time_ms(lambda: montexp.rns_mont_exp_tiled(up, bitsp, ctxp), 3)
-    log(f"[kernels] rns_mont_exp (12, {ctxp.CH}) x 512 shared bits: equal; "
-        f"{msp:.3f} ms")
-    # the main path's own K2 shapes: r^n noise (2048 rows) and the mask
-    # encryptions (12 rows), one shared 1024-bit exponent
-    nbits = torch.as_tensor(gen.integers(0, 2, size=1024), dtype=torch.int32,
-                            device=dev)
-    nbits[0] = 1
-    for rows in (2048, 12):
-        un = _random_states(ctx, rows, gen, dev)
-        compare(f"rns_mont_exp ({rows}, {ctx.CH}) x 1024 shared bits",
-                montexp.rns_mont_exp_tiled(un, nbits, ctx),
-                montexp.plain_ladder(un, nbits, ctx), ctx)
-        msn = time_ms(lambda: montexp.rns_mont_exp_tiled(un, nbits, ctx), 2)
-        log(f"[kernels] rns_mont_exp ({rows}, {ctx.CH}) x 1024 shared bits: "
-            f"equal; {msn:.3f} ms")
+        e[0] = 1
+        un = _random_states(c, rows, gen, dev)
+        compare(f"rns_mont_exp ({rows}, {c.CH}) x {nb} shared bits",
+                montexp.rns_mont_exp_tiled(un, e, c),
+                montexp.plain_ladder(un, e, c), c)
+        msn = time_ms(lambda: montexp.rns_mont_exp_tiled(un, e, c), 3)
+        bn, byn = bound(2 * rows * c.CH * 4 + nb * 4, rows * (2 * nb + 1), c)
+        results["rns_mont_exp"]["shapes"].append(dict(
+            rows=rows, CH=c.CH, bits=nb, ms=msn, bound_ms=bn, bound_by=byn))
+        log(f"[kernels] rns_mont_exp ({rows}, {c.CH}) x {nb} shared bits: "
+            f"equal; {msn:.3f} ms, bound {bn:.5f} ms ({byn})")
 
     # K3 at nrows 2048, m 12, 6 levels of window 4
     cts = _random_states(ctx, 2048, gen, dev)
@@ -448,6 +495,9 @@ def phase_cios_kernels(mod_n2, mod_p2, results):
         log(f"[kernels] mont_exp ({rows}, {mod.L}) x {label}: equal on all "
             f"{rows} rows (plain {plain_s:.1f} s); {msn:.3f} ms, bound "
             f"{bd:.4f} ms ({by})")
+        results["mont_exp"].setdefault("shapes", []).append(dict(
+            rows=rows, L=mod.L, bits=e.numel(), ms=msn, bound_ms=bd,
+            bound_by=by))
 
     # K7 at nrows 2048, m 12, 6 levels of window 4
     cts = _random_limbs(mod_n2, 2048, gen, dev)
@@ -875,6 +925,11 @@ def main():
     results = {}
     phase_rns_kernels(ctx_n2, ctx_p2, results)
     phase_cios_kernels(priv.pub.mod_n2, priv.crt_p.mod_p2, results)
+    for k2, k6 in zip(results["rns_mont_exp"]["shapes"],
+                      results["mont_exp"]["shapes"]):
+        log(f"[kernels] ladder at {k2['rows']} rows x {k2['bits']} shared "
+            f"bits: K2 (RNS, CH {k2['CH']}) {k2['ms']:.3f} ms against K6 "
+            f"(CIOS, L {k6['L']}) {k6['ms']:.3f} ms")
     phase_ring_matmul(results)
     phase_paillier(priv, "rns")
     phase_paillier(priv, "cios")
@@ -897,6 +952,8 @@ def main():
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"),
                         "bound_by": r.get("bound_by"), "library_ms": None})
+        if "shapes" in r:
+            kernels[-1]["shapes"] = r["shapes"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card {card}; "
         f"summary {json.dumps(summary)}")
     log(json.dumps({"kernels": kernels}))

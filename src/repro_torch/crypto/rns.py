@@ -112,10 +112,12 @@ class RNSContext:
                 "vecs": t(self.vecs, torch.int64),
                 "t_b": t(self.t_b, torch.float64),
                 "t_a": t(self.t_a, torch.float64),
-                "t_b32": t(self.t_b, torch.int32).contiguous(),
-                "t_a32": t(self.t_a, torch.int32).contiguous(),
-                "mods32": t(self.all_mods, torch.int32).contiguous(),
-                "vecs32": t(self.vecs, torch.int32).contiguous(),
+                # the CUDA round's operands (csrc/rns_common.cuh)
+                "chan32": t(round_constants(self), torch.int32).contiguous(),
+                "tb_mma": torch.as_tensor(mma_operand(ext1_matrix(self)),
+                                          device=device).contiguous(),
+                "ta_mma": torch.as_tensor(mma_operand(ext2_matrix(self)),
+                                          device=device).contiguous(),
                 "pow_mat": t(self.pow_mat, torch.float64),
                 "pow_scaled": t(self.pow_scaled, torch.float64),
                 "limb_a": t(self.limb_a, torch.float64),
@@ -125,6 +127,91 @@ class RNSContext:
                 "exit": t(self.consts["exit"], torch.int32),
             }
         return self._dev[key]
+
+
+# ---------------------------------------------------------------------------
+# Tables of the CUDA round (csrc/rns_common.cuh): the base extensions as
+# u8 products on the int8 tensor cores (mma.sync m16n8k32), every
+# remainder by Barrett's reduction
+# ---------------------------------------------------------------------------
+
+MMA_M, MMA_K = 16, 32    # A fragment: output channels x input channels
+EXT2_CHANNELS = 15       # base-B channels in a second-extension m-tile
+
+
+def barrett_mu(mods: np.ndarray) -> np.ndarray:
+    """⌊2^32 / m⌋ per channel modulus (uint32): with it, x mod m is
+    x − umulhi(x, μ)·m less one conditional m, for any x < 2^32."""
+    return ((1 << 32) // np.asarray(mods, np.uint64)).astype(np.uint32)
+
+
+def round_constants(ctx: "RNSContext") -> np.ndarray:
+    """(8, CH) uint32 rows the CUDA round reads per channel, the products
+    of `vecs` that its steps use folded in advance (mod each channel):
+    moduli; Barrett constants; (−N⁻¹)·(B/bᵢ)⁻¹ by i < kB; (A/aⱼ)⁻¹ by
+    j < kA; N·B⁻¹ and B⁻¹ by o ≤ kA over [A | m_r]; A mod bᵢ by i < kB;
+    zeros."""
+    kA, kB, CH = ctx.kA, ctx.kB, ctx.CH
+    v = ctx.vecs.astype(np.uint64)
+    bm = ctx.b_mods.astype(np.uint64)
+    arm = np.concatenate([ctx.a_mods, ctx.all_mods[CH - 1:]]).astype(np.uint64)
+    out = np.zeros((8, CH), np.uint64)
+    out[0] = ctx.all_mods
+    out[1] = barrett_mu(ctx.all_mods)
+    out[2, :kB] = v[0, :kB] * v[1, :kB] % bm
+    out[3, :kA] = v[2, :kA]
+    out[4, :kA + 1] = v[3, :kA + 1] * v[4, :kA + 1] % arm
+    out[5, :kA + 1] = v[4, :kA + 1]
+    out[6, :kB] = v[5, :kB]
+    return out.astype(np.uint32)
+
+
+def ext1_matrix(ctx: "RNSContext") -> np.ndarray:
+    """First extension B → A + m_r as (output, input): (kA+1, kB) = t_bᵀ."""
+    return np.ascontiguousarray(ctx.t_b.T)
+
+
+def ext2_matrix(ctx: "RNSContext") -> np.ndarray:
+    """Second extension A → B + m_r as (output, input) rows in m-tiles of
+    16: tile i holds base-B channels 15i … 15i+14 in rows 0–14 and the m_r
+    row in row 15 (every warp then holds σ_r for its own rows); the rows
+    past kB are zero.  Shape (16·⌈kB/15⌉, kA)."""
+    kA, kB = ctx.kA, ctx.kB
+    mt = -(-kB // EXT2_CHANNELS)
+    out = np.zeros((mt, MMA_M, kA), np.uint32)
+    for i in range(mt):
+        lo, hi = i * EXT2_CHANNELS, min(kB, (i + 1) * EXT2_CHANNELS)
+        out[i, :hi - lo] = ctx.t_a[:, lo:hi].T
+        out[i, MMA_M - 1] = ctx.t_a[:, kB]
+    return out.reshape(mt * MMA_M, kA)
+
+
+def mma_fragments(mat: np.ndarray) -> np.ndarray:
+    """(M, K) values → (⌈M/16⌉, ⌈K/32⌉, 32, 16), zero-padded, in the order
+    of mma.m16n8k32's A fragments: lane l = 4g + t holds, in element
+    e = 4·reg + i, entry (g + 8·(reg & 1), 4t + i + 16·(reg ≥ 2)) of its
+    16 × 32 tile."""
+    M, K = mat.shape
+    mt, kt = -(-M // MMA_M), -(-K // MMA_K)
+    pad = np.zeros((mt * MMA_M, kt * MMA_K), mat.dtype)
+    pad[:M, :K] = mat
+    tiles = pad.reshape(mt, MMA_M, kt, MMA_K).transpose(0, 2, 1, 3)
+    lane, e = np.arange(32)[:, None], np.arange(16)[None, :]
+    reg, i = e // 4, e % 4
+    row = lane // 4 + 8 * (reg % 2)
+    col = 4 * (lane % 4) + i + 16 * (reg // 2)
+    return tiles[:, :, row, col]
+
+
+def mma_operand(mat: np.ndarray) -> np.ndarray:
+    """A table of residues < 2^13 as the round's A operand: its low bytes
+    and its high 5 bits, each in fragment order (`mma_fragments`), as
+    (2, ⌈M/16⌉, ⌈K/32⌉, 32, 16) uint8."""
+    mat = np.asarray(mat, np.uint32)
+    if mat.size and int(mat.max()) >= 1 << CHANNEL_BITS:
+        raise ValueError("mma_operand: entries must be below 2^13")
+    return np.ascontiguousarray(np.stack(
+        [mma_fragments(mat & 255), mma_fragments(mat >> 8)]), np.uint8)
 
 
 def _residues(v: int, mods: np.ndarray) -> np.ndarray:

@@ -16,12 +16,13 @@
 // selects table[lvl][0] = the state of one, so every row runs the same
 // rounds.  One launch walks all levels.  The whole table (80 x 16 x 329
 // states at a 1024-bit key, 1.68 MB as int32) does not fit shared memory
-// beside the 106 KB of extension tables; each level's 2^window entries are
+// beside the 132 KB of extension tables; each level's 2^window entries are
 // staged into shared memory as uint16 (10.5 KB) before its round.
 //
 // What bounds it on the H100: integer operations, as for K2 (one round of
-// about 54k multiply-adds per row per level at CH = 329: 81 rounds a row
-// against K2's 2*nbits + 1 = 2049 for an r^n ladder).  The bytes are the
+// about 54k multiply-adds per row per level at CH = 329, on the int8
+// tensor cores: 81 rounds a row against K2's 2*nbits + 1 = 2049 for an
+// r^n ladder).  The bytes are the
 // table (read once per block, from L2 after the first), the digits and the
 // output.  Rows are independent: about one block of rows per SM.
 #include "rns_common.cuh"
@@ -34,10 +35,9 @@ rns_fixedbase_kernel(const int32_t* __restrict__ table,
                      int npow, const int32_t* __restrict__ one,
                      const int32_t* __restrict__ exitc,
                      int32_t* __restrict__ out, int batch, int tile_rows,
-                     rns::Dims d, const int32_t* __restrict__ mods,
-                     const int32_t* __restrict__ t_b,
-                     const int32_t* __restrict__ t_a,
-                     const int32_t* __restrict__ vecs) {
+                     rns::Dims d, const int32_t* __restrict__ chan,
+                     const void* __restrict__ tb_frag,
+                     const void* __restrict__ ta_frag) {
   extern __shared__ __align__(16) unsigned char smem[];
   rns::Smem S;
   unsigned char* p = rns::carve(smem, d, tile_rows, S);
@@ -50,7 +50,7 @@ rns_fixedbase_kernel(const int32_t* __restrict__ table,
   int32_t* DIG = reinterpret_cast<int32_t*>(
       p + 2 * tb + rns::align16(sizeof(uint16_t) * (npow + 1) * CH));
 
-  rns::load_tables(S, d, mods, t_b, t_a, vecs);
+  rns::load_tables(S, d, chan, tb_frag, ta_frag);
   const long long r0 = static_cast<long long>(blockIdx.x) * tile_rows;
   const int rows = static_cast<int>(min(static_cast<long long>(tile_rows),
                                         batch - r0));
@@ -98,15 +98,15 @@ extern "C" int rns_fixedbase_launch(const void* table, const void* digits,
                                     int levels, int window, const void* one,
                                     const void* exitc, void* out, int batch,
                                     int kA, int kB, int CH,
-                                    unsigned int ainv_r, const void* mods,
-                                    const void* t_b, const void* t_a,
-                                    const void* vecs, void* stream) {
+                                    unsigned int ainv_r, const void* chan,
+                                    const void* tb, const void* ta,
+                                    void* stream) {
   if (batch <= 0) return 0;
   if (window < 1 || window > 8) return static_cast<int>(cudaErrorInvalidValue);
   const int npow = 1 << window;
-  const rns::Dims d{kA, kB, CH, ainv_r};
+  const rns::Dims d = rns::dims(kA, kB, CH, ainv_r);
   const int rows = rns::pick_rows(
-      batch, 32, [&](int r) { return fixedbase_bytes(d, r, npow); });
+      d, batch, 32, [&](int r) { return fixedbase_bytes(d, r, npow); });
   if (rows == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t bytes = fixedbase_bytes(d, rows, npow);
   cudaError_t err = cudaFuncSetAttribute(
@@ -119,8 +119,6 @@ extern "C" int rns_fixedbase_launch(const void* table, const void* digits,
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(digits),
       levels, npow, static_cast<const int32_t*>(one),
       static_cast<const int32_t*>(exitc), static_cast<int32_t*>(out), batch,
-      rows, d, static_cast<const int32_t*>(mods),
-      static_cast<const int32_t*>(t_b), static_cast<const int32_t*>(t_a),
-      static_cast<const int32_t*>(vecs));
+      rows, d, static_cast<const int32_t*>(chan), tb, ta);
   return static_cast<int>(cudaGetLastError());
 }

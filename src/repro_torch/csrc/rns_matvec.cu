@@ -20,14 +20,15 @@
 // Per block: (1) the power table c_i^p, p < 2^window, of its rows, built
 // with 2^window - 2 rounds over the chunk and kept in device memory (a
 // chunk's table is 16 x 16 x 329 uint16 = 168 KB, too large for shared
-// memory beside the 106 KB of extension tables; the whole table is 21.5 MB
+// memory beside the 132 KB of extension tables; the whole table is 21.5 MB
 // and stays in the 50 MB L2); (2) per MSB-first digit level, `window`
 // squarings of the accumulator tile and a sequential fold of the selected
 // powers of each row, then one product into the accumulator.
 //
 // What bounds it on the H100: integer operations, as for K1 and K2 (one
 // round per row per column per level, about 54k multiply-adds each at
-// CH = 329); the bytes are the ciphertexts, the digits and the partials.
+// CH = 329, on the int8 tensor cores: rns_common.cuh); the bytes are the
+// ciphertexts, the digits and the partials.
 // Padding rows (the wrapper pads the rows to a multiple of `chunk`) hold
 // the state of one and digit 0, so they fold the same value as the plain
 // version does.
@@ -41,10 +42,9 @@ rns_matvec_kernel(const int32_t* __restrict__ u,
                   int m, int window, int chunk, int tile_m,
                   const int32_t* __restrict__ one,
                   uint16_t* __restrict__ table, int32_t* __restrict__ out,
-                  rns::Dims d, const int32_t* __restrict__ mods,
-                  const int32_t* __restrict__ t_b,
-                  const int32_t* __restrict__ t_a,
-                  const int32_t* __restrict__ vecs) {
+                  rns::Dims d, const int32_t* __restrict__ chan,
+                  const void* __restrict__ tb_frag,
+                  const void* __restrict__ ta_frag) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows_max = chunk > tile_m ? chunk : tile_m;
   rns::Smem S;
@@ -63,7 +63,7 @@ rns_matvec_kernel(const int32_t* __restrict__ u,
   uint16_t* T = table + (static_cast<size_t>(blockIdx.y) * nrows + row0) *
                             npow * CH;
 
-  rns::load_tables(S, d, mods, t_b, t_a, vecs);
+  rns::load_tables(S, d, chan, tb_frag, ta_frag);
   for (int c = threadIdx.x; c < CH; c += blockDim.x)
     ONE[c] = static_cast<uint16_t>(one[c]);
   for (int idx = threadIdx.x; idx < chunk * CH; idx += blockDim.x) {
@@ -128,14 +128,14 @@ extern "C" int rns_matvec_launch(const void* u, const void* digits,
                                  int chunk, int tile_m, const void* one,
                                  void* table, void* out, int kA, int kB,
                                  int CH, unsigned int ainv_r,
-                                 const void* mods, const void* t_b,
-                                 const void* t_a, const void* vecs,
-                                 void* stream) {
+                                 const void* chan, const void* tb,
+                                 const void* ta, void* stream) {
   if (nrows <= 0 || m <= 0) return 0;
   if (nrows % chunk != 0 || window < 1 || window > 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  const rns::Dims d{kA, kB, CH, ainv_r};
+  const rns::Dims d = rns::dims(kA, kB, CH, ainv_r);
   const int rows_max = chunk > tile_m ? chunk : tile_m;
+  if (!rns::fits_budget(d)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = matvec_bytes(d, rows_max);
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
@@ -152,8 +152,7 @@ extern "C" int rns_matvec_launch(const void* u, const void* digits,
       static_cast<const int32_t*>(u), static_cast<const int32_t*>(digits),
       levels, nrows, m, window, chunk, tile_m,
       static_cast<const int32_t*>(one), static_cast<uint16_t*>(table),
-      static_cast<int32_t*>(out), d, static_cast<const int32_t*>(mods),
-      static_cast<const int32_t*>(t_b), static_cast<const int32_t*>(t_a),
-      static_cast<const int32_t*>(vecs));
+      static_cast<int32_t*>(out), d, static_cast<const int32_t*>(chan), tb,
+      ta);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,13 +31,13 @@ _P, _I, _LL, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_uint)
 _SIGNATURES = {
     "rns_montmul_launch": [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _U,
-                           _P, _P, _P, _P, _P],
+                           _P, _P, _P, _P],
     "rns_montexp_launch": [_P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _U,
-                           _P, _P, _P, _P, _P],
+                           _P, _P, _P, _P],
     "rns_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                          _I, _I, _I, _U, _P, _P, _P, _P, _P],
+                          _I, _I, _I, _U, _P, _P, _P, _P],
     "rns_fixedbase_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                             _U, _P, _P, _P, _P, _P],
+                             _U, _P, _P, _P, _P],
     "cios_montmul_launch": [_P, _LL, _P, _LL, _P, _I, _P, _I, _U, _P],
     "cios_montexp_launch": [_P, _P, _LL, _I, _P, _I, _P, _P, _I, _U, _P],
     "cios_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,

@@ -42,10 +42,11 @@ def check_states(t: torch.Tensor, ctx: RNSContext, name: str,
 
 
 def launch_args(ctx: RNSContext, device):
+    """The context's arguments of every RNS kernel: dimensions, the (8, CH)
+    channel constants and both extensions' fragment-ordered tables."""
     d = ctx.tables(device)
-    return (ctx.kA, ctx.kB, ctx.CH, ctx.ainv_r, d["mods32"].data_ptr(),
-            d["t_b32"].data_ptr(), d["t_a32"].data_ptr(),
-            d["vecs32"].data_ptr())
+    return (ctx.kA, ctx.kB, ctx.CH, ctx.ainv_r, d["chan32"].data_ptr(),
+            d["tb_mma"].data_ptr(), d["ta_mma"].data_ptr())
 
 
 def rns_montmul_tiled(x: torch.Tensor, y: torch.Tensor,
