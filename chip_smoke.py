@@ -7,8 +7,11 @@ holds each against its plain PyTorch version at the training path's
 shapes (exact equality of channel states and limbs; K2, the RNS ladder,
 at every row count its launch shape branches on, on both contexts of a
 1024-bit key, with per-row and shared bits and on extreme states, K1 on
-extreme states too; K8, the Z_2^64 matrix product, at four shapes up to
-2048³ and on all-ones operands),
+extreme states too; K6, the CIOS ladder, on the sweep of
+`repro_torch.bench.ladder_check`: every row count its launch shape
+branches on, W = 8 to 64 words, extreme bases and exponents; K8, the
+Z_2^64 matrix product, at four shapes up to 2048³ and on all-ones
+operands),
 checks 1024-bit Paillier on the card on both arithmetic pipelines,
 then drives Algorithm 1 training at the paper's Table 1 configuration
 (credit-default twin, 2 parties × 12 features, batch 2048, 1024-bit
@@ -498,6 +501,13 @@ def phase_cios_kernels(mod_n2, mod_p2, results):
         results["mont_exp"].setdefault("shapes", []).append(dict(
             rows=rows, L=mod.L, bits=e.numel(), ms=msn, bound_ms=bd,
             bound_by=by))
+    # every row count the launch shape branches on, W = 8, 16, 32 and 64
+    # words, extreme operands and exponents (repro_torch.bench.ladder_check)
+    from repro_torch.bench import ladder_check
+    try:
+        ladder_check.sweep(log)
+    except AssertionError as e:
+        fail(str(e))
 
     # K7 at nrows 2048, m 12, 6 levels of window 4
     cts = _random_limbs(mod_n2, 2048, gen, dev)

@@ -37,6 +37,11 @@ class VFLConfig:
     cp_selection: str = "fixed"       # "fixed" | "random"
     crypto_engine: str = "auto"       # "auto" | "cuda" | "torch"
     seed: int = 0
+    # the reference's loss-record, checkpoint and socket-wire settings,
+    # kept for its call sites; train_vfl (local transport) reads none
+    record_every: int = 1
+    checkpoint_every: int = 0
+    wire_compression: str = "none"
     device: str = "cuda"              # where shares and ciphertexts live
 
 

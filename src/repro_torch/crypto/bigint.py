@@ -125,6 +125,43 @@ def mont_one(mod: Modulus, device) -> torch.Tensor:
     return const(mod.r1, device)
 
 
+WORD_BITS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class WordConstants:
+    """N in W 32-bit words and the constants of the word domain R' =
+    2^(32 W) that K6 (`csrc/cios_montexp.cu`) runs its ladder in."""
+
+    W: int                  # 4 ceil(bits(N) / 128): whole groups of 4
+    n0inv: int              # -N^-1 mod 2^32
+    table: torch.Tensor     # (4, W) int32 words: N, R' mod N, c_in, c_out
+
+
+def word_constants(mod: Modulus, device) -> WordConstants:
+    """The word domain of `mod`, its table on `device` (copied once).
+    One' = R' mod N starts the ladder; a product by c_in = R'^2 R^-1 mod
+    N takes x·R to x·R', one by c_out = R mod N takes y·R' to y·R."""
+    return _word_constants(mod.value, mod.L, str(torch.device(device)))
+
+
+def int_to_words(x: int, W: int) -> np.ndarray:
+    """Python int -> (W,) uint32 little-endian words."""
+    return np.frombuffer(x.to_bytes(4 * W, "little"), "<u4").copy()
+
+
+@functools.lru_cache(maxsize=64)
+def _word_constants(n: int, L: int, device: str) -> WordConstants:
+    W = 4 * -(-n.bit_length() // (4 * WORD_BITS))
+    rp = 1 << (WORD_BITS * W)
+    r = 1 << (LIMB_BITS * L)
+    rows = [n, rp % n, rp * rp * pow(r, -1, n) % n, r % n]
+    table = np.stack([int_to_words(v, W) for v in rows]).view(np.int32)
+    return WordConstants(W=W, n0inv=(-pow(n, -1, 1 << WORD_BITS))
+                         % (1 << WORD_BITS),
+                         table=const(table, device, dtype=torch.int32))
+
+
 def const(arr: np.ndarray, device, dtype=torch.int64) -> torch.Tensor:
     """A host constant (modulus limbs, key material, exponent bits) as a
     tensor on `device`, copied once: a copy from host memory waits for

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "rns_fixedbase_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                              _U, _P, _P, _P, _P],
     "cios_montmul_launch": [_P, _LL, _P, _LL, _P, _I, _P, _I, _U, _P],
-    "cios_montexp_launch": [_P, _P, _LL, _I, _P, _I, _P, _P, _I, _U, _P],
+    "cios_montexp_launch": [_P, _P, _LL, _I, _P, _I, _I, _P, _I, _U, _P],
     "cios_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                            _U, _P],
     "ring_matmul_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

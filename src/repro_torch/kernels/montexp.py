@@ -155,11 +155,11 @@ def mont_exp_tiled(base: torch.Tensor, bits: torch.Tensor,
         raise ValueError(f"mont_exp: bits shape {tuple(bits.shape)} does "
                          f"not match {batch} rows")
     out = torch.empty_like(base)
+    wc = bigint.word_constants(mod, base.device)
     fn = build.load().fn("cios_montexp_launch")
     err = fn(base.data_ptr(), bits.data_ptr(),
              nbits if bits.dim() == 2 else 0, nbits, out.data_ptr(), batch,
-             bigint.const(mod.limbs, base.device).data_ptr(),
-             bigint.mont_one(mod, base.device).data_ptr(), mod.L, mod.n0inv,
+             mod.L, wc.table.data_ptr(), wc.W, wc.n0inv,
              torch.cuda.current_stream(base.device).cuda_stream)
     build.check(err, "mont_exp")
     mont_exp_tiled.launches += 1
