@@ -9,9 +9,13 @@ at every row count its launch shape branches on, on both contexts of a
 1024-bit key, with per-row and shared bits and on extreme states, K1 on
 extreme states too; K6, the CIOS ladder, on the sweep of
 `repro_torch.bench.ladder_check`: every row count its launch shape
-branches on, W = 8 to 64 words, extreme bases and exponents; K8, the
-Z_2^64 matrix product, at four shapes up to 2048³ and on all-ones
-operands),
+branches on, W = 8 to 64 words, extreme bases and exponents; K5, the
+CIOS product, and K7, the CIOS windowed matvec, on the sweep of
+`repro_torch.bench.matvec_check`: K5 at every row count its launch
+shape branches on with per-row and shared operands, K7 through
+`ops.he_matvec_fused` at row counts on and off the chunk, 1 to 13
+columns, windows 1, 4 and 8, extreme digits; K8, the Z_2^64 matrix
+product, at four shapes up to 2048³ and on all-ones operands),
 checks 1024-bit Paillier on the card on both arithmetic pipelines,
 then drives Algorithm 1 training at the paper's Table 1 configuration
 (credit-default twin, 2 parties × 12 features, batch 2048, 1024-bit
@@ -423,7 +427,7 @@ def phase_rns_kernels(ctx_n2, ctx_p2, results):
 def phase_cios_kernels(mod_n2, mod_p2, results):
     import numpy as np
     import torch
-    from repro_torch.crypto import bigint
+    from repro_torch.bench import ladder_check, matvec_check
     from repro_torch.kernels import montexp, montmul
     from repro_torch.kernels.ops import MATVEC_CHUNK as CHUNK
     dev = torch.device("cuda")
@@ -446,12 +450,15 @@ def phase_cios_kernels(mod_n2, mod_p2, results):
             montmul.montmul_tiled(a, b[0].contiguous(), mod_n2),
             montmul.plain_cios(a, b[0], mod_n2))
     ms = time_ms(lambda: montmul.montmul_tiled(a, b, mod_n2), 20)
+    dev_ms = matvec_check.graph_ms(
+        lambda: montmul.montmul_tiled(a, b, mod_n2), 20)
     plain_ms = time_ms(lambda: montmul.plain_cios(a, b, mod_n2), 5)
     bd, by = cios_bound(3 * 2048 * L * 8, 2048, 0, bits_n2)
-    results["montmul"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bd, bound_by=by)
-    log(f"[kernels] montmul (2048, {L}): equal; {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bd:.5f} ms ({by})")
+    results["montmul"] = dict(max_abs_err=err, ms=ms, graph_ms=dev_ms,
+                              plain_ms=plain_ms, bound_ms=bd, bound_by=by)
+    log(f"[kernels] montmul (2048, {L}): equal; {ms:.4f} ms back to back, "
+        f"{dev_ms:.4f} ms in a CUDA graph, plain {plain_ms:.4f} ms, bound "
+        f"{bd:.5f} ms ({by})")
 
     # K6 at (256, L) with per-row 1024-bit exponents (timed against the
     # plain ladder); then the main path's shapes, every row checked: the
@@ -503,9 +510,9 @@ def phase_cios_kernels(mod_n2, mod_p2, results):
             bound_by=by))
     # every row count the launch shape branches on, W = 8, 16, 32 and 64
     # words, extreme operands and exponents (repro_torch.bench.ladder_check)
-    from repro_torch.bench import ladder_check
     try:
         ladder_check.sweep(log)
+        matvec_check.sweep(log)
     except AssertionError as e:
         fail(str(e))
 
@@ -521,14 +528,17 @@ def phase_cios_kernels(mod_n2, mod_p2, results):
     err = compare("he_matvec (2048 rows, m 12, 6 levels)", got, want)
     ms = time_ms(lambda: montexp.he_matvec_tiled(cts, digits, mod_n2,
                                                  window=4, chunk=CHUNK), 3)
+    dev_ms = matvec_check.graph_ms(lambda: montexp.he_matvec_tiled(
+        cts, digits, mod_n2, window=4, chunk=CHUNK), 3)
     # least work of the function, whatever the chunking (as for K3)
     products, squares = matvec_work(digits, 4)
     bd, by = cios_bound(cts.numel() * 8 + digits.numel() * 4 + 12 * L * 8,
                         products, squares, bits_n2)
-    results["he_matvec"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bd, bound_by=by)
+    results["he_matvec"] = dict(max_abs_err=err, ms=ms, graph_ms=dev_ms,
+                                plain_ms=plain_ms, bound_ms=bd, bound_by=by)
     log(f"[kernels] he_matvec (2048 rows, m 12, 6 levels): equal; "
-        f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bd:.4f} ms ({by})")
+        f"{ms:.3f} ms back to back, {dev_ms:.3f} ms in a CUDA graph, plain "
+        f"{plain_ms:.1f} ms, bound {bd:.4f} ms ({by})")
 
 
 def phase_ring_matmul(results):
@@ -962,8 +972,9 @@ def main():
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"),
                         "bound_by": r.get("bound_by"), "library_ms": None})
-        if "shapes" in r:
-            kernels[-1]["shapes"] = r["shapes"]
+        for extra in ("graph_ms", "shapes"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card {card}; "
         f"summary {json.dumps(summary)}")
     log(json.dumps({"kernels": kernels}))

@@ -131,17 +131,21 @@ WORD_BITS = 32
 @dataclasses.dataclass(frozen=True)
 class WordConstants:
     """N in W 32-bit words and the constants of the word domain R' =
-    2^(32 W) that K6 (`csrc/cios_montexp.cu`) runs its ladder in."""
+    2^(32 W) that the CIOS kernels K5–K7 (`csrc/cios_words.cuh`) compute
+    in."""
 
     W: int                  # 4 ceil(bits(N) / 128): whole groups of 4
     n0inv: int              # -N^-1 mod 2^32
-    table: torch.Tensor     # (4, W) int32 words: N, R' mod N, c_in, c_out
+    table: torch.Tensor     # (5, W) int32 words: N, R' mod N, c_in, c_out,
+    #                         c_wide
 
 
 def word_constants(mod: Modulus, device) -> WordConstants:
     """The word domain of `mod`, its table on `device` (copied once).
     One' = R' mod N starts the ladder; a product by c_in = R'^2 R^-1 mod
-    N takes x·R to x·R', one by c_out = R mod N takes y·R' to y·R."""
+    N takes x·R to x·R', one by c_out = R mod N takes y·R' to y·R.  K5's
+    products take one word more (E = 2^(32 (W + 1)) > R), and c_wide =
+    E^2 R^-1 mod N makes two of them a·b·R^-1."""
     return _word_constants(mod.value, mod.L, str(torch.device(device)))
 
 
@@ -155,7 +159,9 @@ def _word_constants(n: int, L: int, device: str) -> WordConstants:
     W = 4 * -(-n.bit_length() // (4 * WORD_BITS))
     rp = 1 << (WORD_BITS * W)
     r = 1 << (LIMB_BITS * L)
-    rows = [n, rp % n, rp * rp * pow(r, -1, n) % n, r % n]
+    e = rp << WORD_BITS
+    rows = [n, rp % n, rp * rp * pow(r, -1, n) % n, r % n,
+            e * e * pow(r, -1, n) % n]
     table = np.stack([int_to_words(v, W) for v in rows]).view(np.int32)
     return WordConstants(W=W, n0inv=(-pow(n, -1, 1 << WORD_BITS))
                          % (1 << WORD_BITS),

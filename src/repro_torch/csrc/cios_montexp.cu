@@ -49,51 +49,6 @@ namespace {
 
 constexpr int kMaxRows = 8;  // rows a block, two warps each: bar.sync ids 1-8
 
-// Words of the canonical 12-bit limbs limbs[0 .. L - 1]: word w holds bits
-// 32w .. 32w + 31, drawn from limbs 32w / 12 .. (32w + 31) / 12.
-template <int S>
-__device__ inline void pack_limbs(words::Words<S>& x,
-                                  const int64_t* __restrict__ limbs, int L,
-                                  int W) {
-  const int lane = words::lane_id();
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int w = lane * S + s;
-    uint32_t v = 0u;
-    if (w < W) {
-      const int j0 = (32 * w) / 12;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        const int j = j0 + d;
-        const int sh = 12 * j - 32 * w;  // -11 .. 35
-        if (j < L && sh < 32) {
-          const uint32_t limb = static_cast<uint32_t>(limbs[j]);
-          v |= sh >= 0 ? limb << sh : limb >> -sh;
-        }
-      }
-    }
-    x.v[s] = v;
-  }
-}
-
-// The 12-bit limbs of x into dst[0 .. L - 1], through the warp's staging
-// buffer of 32 * S words: a limb can straddle two words of two lanes.
-template <int S>
-__device__ inline void unpack_limbs(const words::Words<S>& x, uint32_t* buf,
-                                    int64_t* __restrict__ dst, int L, int W) {
-  const int lane = words::lane_id();
-#pragma unroll
-  for (int s = 0; s < S; ++s) buf[lane * S + s] = x.v[s];
-  __syncwarp();
-  for (int j = lane; j < L; j += 32) {
-    const int w = (12 * j) >> 5, sh = (12 * j) & 31;
-    uint32_t v = w < W ? buf[w] >> sh : 0u;
-    if (sh > 20 && w + 1 < W) v |= buf[w + 1] << (32 - sh);
-    dst[j] = static_cast<int64_t>(v & 0xfffu);
-  }
-  __syncwarp();
-}
-
 template <int S>
 __device__ inline words::Words<S> pick(const words::Words<S>& on,
                                        const words::Words<S>& off,
@@ -106,7 +61,7 @@ __device__ inline words::Words<S> pick(const words::Words<S>& on,
   return r;
 }
 
-// Constants: consts = (4, W) int32 words of N, R' mod N, c_in, c_out.
+// Constants: consts = the (5, W) int32 words of bigint.word_constants.
 template <int S>
 __global__ void __launch_bounds__(kMaxRows * 64)
 cios_montexp_kernel(const int64_t* __restrict__ base,
@@ -123,10 +78,10 @@ cios_montexp_kernel(const int64_t* __restrict__ base,
       static_cast<long long>(blockIdx.x) * (blockDim.x >> 6) + pr;
   if (row >= batch) return;  // whole pairs only
   words::Words<S> n, acc, cin, x;
-  words::load(n, consts, W);
-  words::load(acc, consts + W, W);  // R' mod N: one
-  words::load(cin, consts + 2 * W, W);
-  pack_limbs(x, base + row * L, L, W);
+  words::load_const(n, consts, words::kN, W);
+  words::load_const(acc, consts, words::kOne, W);
+  words::load_const(cin, consts, words::kCin, W);
+  words::pack_limbs(x, base + row * L, L, W);
   words::Words<S> u = words::montmul(x, cin, n, n0inv, W, buf);  // x * R'
   const int32_t* bit = bits + row * bit_stride;
   for (int k = nbits - 1; k >= 0; --k) {
@@ -147,9 +102,9 @@ cios_montexp_kernel(const int64_t* __restrict__ base,
   }
   if (role == 0) {
     words::Words<S> cout;
-    words::load(cout, consts + 3 * W, W);
-    unpack_limbs(words::montmul(acc, cout, n, n0inv, W, buf), buf,
-                 out + row * L, L, W);
+    words::load_const(cout, consts, words::kCout, W);
+    words::unpack_limbs(words::montmul(acc, cout, n, n0inv, W, buf), buf,
+                        out + row * L, L, W);
   }
 }
 
@@ -162,11 +117,7 @@ extern "C" int cios_montexp_launch(const void* base, const void* bits,
                                    unsigned int n0inv, void* stream) {
   if (batch <= 0) return 0;
   if (W % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int rows = (batch + sms - 1) / sms;
-  if (rows > kMaxRows) rows = kMaxRows;
+  const int rows = words::rows_per_block(batch, kMaxRows);
   const int grid = (batch + rows - 1) / rows;
   WORDS_DISPATCH(words::words_per_lane(W), {
     cios_montexp_kernel<S><<<grid, rows * 64, 0,

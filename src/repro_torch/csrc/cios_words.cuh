@@ -1,5 +1,15 @@
-// The CIOS Montgomery product of one warp on 32-bit words (K6's ladder,
-// cios_montexp.cu).
+// The CIOS Montgomery product of one warp on 32-bit words, and the way in
+// and out of its domain, shared by the three CIOS kernels of this directory
+// (K5 cios_montmul.cu, K6 cios_montexp.cu, K7 cios_matvec.cu).
+//
+// The kernels' operands and results are canonical radix-2^12 limbs in the
+// Montgomery domain of R = 2^(12 L) (crypto/bigint.py).  A kernel packs
+// limbs into words on load (pack_limbs) and unpacks on store
+// (unpack_limbs).  The word domain R' = 2^(32 W) differs from R, so a value
+// enters it through one product by c_in = R'^2 R^-1 mod N and leaves it
+// through one by c_out = R mod N; N, R' mod N (one), c_in, c_out and K5's
+// c_wide come in one (5, W) int32 table (crypto/bigint.py:word_constants,
+// load_const).
 //
 // A residue mod N of W words (canonical: value < N < R' = 2^(32 W), W a
 // multiple of 4) is spread over the 32 lanes of a warp: lane k holds
@@ -110,13 +120,47 @@ __device__ inline void add_to(uint32_t u, uint32_t& lo, uint32_t& hi) {
       : "+r"(lo), "+r"(hi) : "r"(u));
 }
 
+// One CIOS round: t <- (t + a_i b + m N) / 2^32, word k of t kept as tl +
+// 2^32 th, the next lane's low word pending a round (see above).
+template <int S>
+__device__ __forceinline__ void round_step(uint32_t ai, const Words<S>& b,
+                                           const Words<S>& n, uint32_t n0inv,
+                                           uint32_t (&tl)[S],
+                                           uint32_t (&th)[S],
+                                           uint32_t& pend) {
+  // the round's critical chain first
+  const uint32_t m = __shfl_sync(kFull, (tl[0] + ai * b.v[0]) * n0inv, 0);
+  add_to(pend, tl[S - 1], th[S - 1]);
+  uint32_t xh[S], yl[S], yh[S];
+#pragma unroll
+  for (int q = 0; q < S; ++q) {
+    uint32_t xl;
+    mad_wide(ai, b.v[q], tl[q], xl, xh[q]);
+    mad_wide(m, n.v[q], xl, yl[q], yh[q]);
+  }
+  uint32_t nxt = __shfl_down_sync(kFull, yl[0], 1);
+  if (lane_id() == 31) nxt = 0u;
+#pragma unroll
+  for (int q = 0; q < S; ++q) add3_wide(xh[q], yh[q], th[q], tl[q], th[q]);
+#pragma unroll
+  for (int q = 0; q + 1 < S; ++q) add_to(yl[q + 1], tl[q], th[q]);
+  pend = nxt;  // word S - 1 takes it next round, after m
+}
+
 // a * b * R'^-1 mod N for canonical a, b < N; W a multiple of 4.  All 32
 // lanes of the warp must call it together; abuf is the warp's 16-byte
 // aligned shared scratch of 32 * S words.
-template <int S>
+//
+// kTop: a has one more word, a_top (the same in every lane), and the
+// product runs one more round for it: a * b * E^-1 mod N with E =
+// 2^(32 (W + 1)), canonical for any a < 2^(32 W + 32) and b < N (the value
+// before the subtraction is below (a b + E N) / E < 2N).  K5 uses it to
+// take operands up to R = 2^(12 L) > R', which callers pass
+// (crypto/paillier.py:_fold_below).
+template <int S, bool kTop = false>
 __device__ Words<S> montmul(const Words<S>& a, const Words<S>& b,
                             const Words<S>& n, uint32_t n0inv, int W,
-                            uint32_t* abuf) {
+                            uint32_t* abuf, uint32_t a_top = 0u) {
   static_assert(S >= 2, "lane 0 must hold words 0 and 1");
   const int lane = lane_id();
   // a in shared memory: one broadcast load of 4 words serves 4 rounds
@@ -133,27 +177,9 @@ __device__ Words<S> montmul(const Words<S>& a, const Words<S>& b,
     const uint4 a4 = *reinterpret_cast<const uint4*>(abuf + i);
     const uint32_t ai4[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const uint32_t ai = ai4[r];
-      // the round's critical chain first
-      const uint32_t m = __shfl_sync(kFull, (tl[0] + ai * b.v[0]) * n0inv, 0);
-      add_to(pend, tl[S - 1], th[S - 1]);
-      uint32_t xh[S], yl[S], yh[S];
-#pragma unroll
-      for (int q = 0; q < S; ++q) {
-        uint32_t xl;
-        mad_wide(ai, b.v[q], tl[q], xl, xh[q]);
-        mad_wide(m, n.v[q], xl, yl[q], yh[q]);
-      }
-      uint32_t nxt = __shfl_down_sync(kFull, yl[0], 1);
-      if (lane == 31) nxt = 0u;
-#pragma unroll
-      for (int q = 0; q < S; ++q) add3_wide(xh[q], yh[q], th[q], tl[q], th[q]);
-#pragma unroll
-      for (int q = 0; q + 1 < S; ++q) add_to(yl[q + 1], tl[q], th[q]);
-      pend = nxt;  // word S - 1 takes it next round, after m
-    }
+    for (int r = 0; r < 4; ++r) round_step(ai4[r], b, n, n0inv, tl, th, pend);
   }
+  if (kTop) round_step(a_top, b, n, n0inv, tl, th, pend);
   __syncwarp();
   add_to(pend, tl[S - 1], th[S - 1]);
 
@@ -214,6 +240,79 @@ __device__ Words<S> montmul(const Words<S>& a, const Words<S>& b,
     out.v[q] = (v[q] & keep) | (lo(d) & ~keep);
   }
   return out;
+}
+
+// Rows of the (5, W) constant table of bigint.word_constants: N, R' mod
+// N, c_in, c_out, and c_wide = E^2 R^-1 mod N (K5's two kTop products).
+enum ConstRow { kN = 0, kOne = 1, kCin = 2, kCout = 3, kWide = 4 };
+
+template <int S>
+__device__ inline void load_const(Words<S>& x,
+                                  const int32_t* __restrict__ consts,
+                                  ConstRow row, int W) {
+  load(x, consts + row * W, W);
+}
+
+// Word w of the canonical 12-bit limbs limbs[0 .. L - 1]: bits 32w ..
+// 32w + 31, drawn from limbs 32w / 12 .. (32w + 31) / 12.
+__device__ inline uint32_t limb_word(const int64_t* __restrict__ limbs,
+                                     int L, int w) {
+  uint32_t v = 0u;
+  const int j0 = (32 * w) / 12;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int j = j0 + d;
+    const int sh = 12 * j - 32 * w;  // -11 .. 35
+    if (j < L && sh < 32) {
+      const uint32_t limb = static_cast<uint32_t>(limbs[j]);
+      v |= sh >= 0 ? limb << sh : limb >> -sh;
+    }
+  }
+  return v;
+}
+
+// Words 0 .. W - 1 of the limbs, zero past W.  A value below R = 2^(12 L)
+// may have bits above word W - 1 (12 L - 32 W < 12): limb_word(limbs, L,
+// W) holds them.
+template <int S>
+__device__ inline void pack_limbs(Words<S>& x,
+                                  const int64_t* __restrict__ limbs, int L,
+                                  int W) {
+  const int lane = lane_id();
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int w = lane * S + s;
+    x.v[s] = w < W ? limb_word(limbs, L, w) : 0u;
+  }
+}
+
+// The 12-bit limbs of x into dst[0 .. L - 1], through the warp's staging
+// buffer of 32 * S words: a limb can straddle two words of two lanes.
+template <int S>
+__device__ inline void unpack_limbs(const Words<S>& x, uint32_t* buf,
+                                    int64_t* __restrict__ dst, int L, int W) {
+  const int lane = lane_id();
+#pragma unroll
+  for (int s = 0; s < S; ++s) buf[lane * S + s] = x.v[s];
+  __syncwarp();
+  for (int j = lane; j < L; j += 32) {
+    const int w = (12 * j) >> 5, sh = (12 * j) & 31;
+    uint32_t v = w < W ? buf[w] >> sh : 0u;
+    if (sh > 20 && w + 1 < W) v |= buf[w + 1] << (32 - sh);
+    dst[j] = static_cast<int64_t>(v & 0xfffu);
+  }
+  __syncwarp();
+}
+
+// Rows a block for a batch of independent rows: ceil(batch / SMs), at most
+// max_rows, so that a batch up to the SM count runs one row on each of that
+// many SMs and a large batch fills blocks of max_rows.
+inline int rows_per_block(int batch, int max_rows) {
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int rows = (batch + sms - 1) / sms;
+  return rows < max_rows ? rows : max_rows;
 }
 
 }  // namespace words

@@ -38,26 +38,29 @@ _SIGNATURES = {
                           _I, _I, _I, _U, _P, _P, _P, _P],
     "rns_fixedbase_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                              _U, _P, _P, _P, _P],
-    "cios_montmul_launch": [_P, _LL, _P, _LL, _P, _I, _P, _I, _U, _P],
+    "cios_montmul_launch": [_P, _LL, _P, _LL, _P, _I, _I, _P, _I, _U, _P],
     "cios_montexp_launch": [_P, _P, _LL, _I, _P, _I, _I, _P, _I, _U, _P],
-    "cios_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
-                           _U, _P],
+    "cios_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _U,
+                           _P],
+    "cios_matvec_rows_fit": [_I, _I, _I],
     "ring_matmul_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
 @dataclasses.dataclass
 class Built:
-    """The loaded libraries plus what the build printed."""
+    """The loaded libraries, their launch entries by name, and what the
+    build printed."""
     libs: dict
+    fns: dict
     seconds: float
     log: str
 
     def fn(self, name: str):
-        for lib in self.libs.values():
-            if hasattr(lib, name):
-                return getattr(lib, name)
-        raise AttributeError(name)
+        try:
+            return self.fns[name]
+        except KeyError:
+            raise AttributeError(name) from None
 
 
 def build_dir() -> Path:
@@ -115,7 +118,7 @@ def load() -> Built:
             raise RuntimeError("nvcc failed for " + ", ".join(failed)
                                + "\n" + "\n".join(logs))
     seconds = time.perf_counter() - t0
-    libs = {}
+    libs, fns = {}, {}
     for src, so in targets.items():
         lib = ctypes.CDLL(str(so))
         for name, args in _SIGNATURES.items():
@@ -123,8 +126,9 @@ def load() -> Built:
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+                fns[name] = fn
         libs[src] = lib
-    return Built(libs=libs, seconds=seconds,
+    return Built(libs=libs, fns=fns, seconds=seconds,
                  log="\n".join(logs) if logs else "(cached build)")
 
 

@@ -9,6 +9,12 @@ matvecs and the fixed-base walk.
 | K6 `mont_exp_tiled` | `cios_montexp.cu` | `mont_exp_tiled` | `crypto.bigint.mont_exp_bits` |
 | K7 `he_matvec_tiled` | `cios_matvec.cu` | `he_matvec_tiled` | `cios_matvec_partials` (per chunk `crypto.bigint.he_matvec_windowed`) |
 
+K2–K4 run the RNS round of `csrc/rns_common.cuh`; K6 and K7 the product
+on 32-bit words of `csrc/cios_words.cuh`, entering and leaving its
+domain through `crypto.bigint.word_constants`.  K7 holds each chunk's
+power table in shared memory, so a chunk has at most `matvec_rows_fit`
+rows.
+
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
 runs its plain version for CPU tensors; each counts its kernel launches
 in `.launches`.
@@ -166,11 +172,20 @@ def mont_exp_tiled(base: torch.Tensor, bits: torch.Tensor,
     return out
 
 
+def matvec_rows_fit(mod: Modulus, window: int, m: int) -> int:
+    """The most rows a chunk of K7 may have at this modulus, window and
+    column count: its power table (rows × 2^window words of N's width)
+    must fit in one block's shared memory on the current card."""
+    fn = build.load().fn("cios_matvec_rows_fit")
+    return fn(window, bigint.word_constants(mod, "cpu").W, m)
+
+
 def he_matvec_tiled(cts: torch.Tensor, digits: torch.Tensor, mod: Modulus,
                     *, window: int, chunk: int) -> torch.Tensor:
     """cts (nrows, L) int64 Montgomery ciphertexts, nrows a multiple of
     `chunk`; digits (levels, nrows, m) int32 MSB-first window digits →
-    (nrows / chunk, m, L) int64 canonical partial products."""
+    (nrows / chunk, m, L) int64 canonical partial products.  On the card
+    `chunk` is at most `matvec_rows_fit`."""
     if cts.device.type == "cpu" and digits.device.type == "cpu":
         return cios_matvec_partials(cts, digits, mod, window, chunk)
     check_limbs(cts, mod.L, "he_matvec cts")
@@ -180,16 +195,16 @@ def he_matvec_tiled(cts: torch.Tensor, digits: torch.Tensor, mod: Modulus,
         raise ValueError(f"he_matvec: digits {tuple(digits.shape)} vs "
                          f"{nrows} rows in chunks of {chunk}")
     levels, _, m = digits.shape
-    table = torch.empty((nrows, 1 << window, mod.L), dtype=torch.int16,
-                        device=cts.device)
+    if chunk > matvec_rows_fit(mod, window, m):      # 0 off windows 1-8
+        raise ValueError(f"he_matvec: a chunk of {chunk} rows at window "
+                         f"{window} does not fit in shared memory")
     out = torch.empty((nrows // chunk, m, mod.L), dtype=torch.int64,
                       device=cts.device)
+    wc = bigint.word_constants(mod, cts.device)
     fn = build.load().fn("cios_matvec_launch")
     err = fn(cts.data_ptr(), digits.data_ptr(), levels, nrows, m, window,
-             chunk, table.data_ptr(), out.data_ptr(),
-             bigint.const(mod.limbs, cts.device).data_ptr(),
-             bigint.mont_one(mod, cts.device).data_ptr(), mod.L, mod.n0inv,
-             torch.cuda.current_stream(cts.device).cuda_stream)
+             chunk, out.data_ptr(), mod.L, wc.table.data_ptr(), wc.W,
+             wc.n0inv, torch.cuda.current_stream(cts.device).cuda_stream)
     build.check(err, "he_matvec")
     he_matvec_tiled.launches += 1
     return out

@@ -4,8 +4,10 @@
   kernel `repro/kernels/montmul.py::rns_montmul_tiled`: one RNS round on
   channel states; plain version `crypto.rns.montmul_channels`.
 * K5 `montmul_tiled` (`csrc/cios_montmul.cu`), port of
-  `repro/kernels/montmul.py::montmul_tiled`: the CIOS product on
-  radix-2^12 limbs; plain version `crypto.bigint.mont_mul`.
+  `repro/kernels/montmul.py::montmul_tiled`: the CIOS product a·b·R⁻¹ on
+  radix-2^12 limbs below R, computed as two products on 32-bit words
+  (`csrc/cios_words.cuh`) with `crypto.bigint.word_constants`' c_wide,
+  one for a shared b; plain version `crypto.bigint.mont_mul`.
 
 Each wrapper launches its CUDA kernel for CUDA tensors, and raises on
 anything the kernel does not take; for CPU tensors it runs the plain
@@ -93,8 +95,10 @@ def check_limbs(t: torch.Tensor, L: int, name: str,
 
 def montmul_tiled(a: torch.Tensor, b: torch.Tensor,
                   mod: Modulus) -> torch.Tensor:
-    """a (batch, L), b (batch, L) or one shared (L,) row: canonical int64
-    limbs < N → (batch, L) int64 canonical limbs of a·b·R⁻¹ mod N."""
+    """a (batch, L), b (batch, L) or one shared (L,) row: int64 limbs,
+    one operand < N and the other < R (`paillier._fold_below` passes
+    values in [N, R)) → (batch, L) int64 canonical limbs of a·b·R⁻¹ mod
+    N."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return plain_cios(a, b, mod)
     check_limbs(a, mod.L, "montmul a")
@@ -105,10 +109,11 @@ def montmul_tiled(a: torch.Tensor, b: torch.Tensor,
     if b.dim() == 2 and b.shape[0] != batch:
         raise ValueError("montmul: b has another batch than a")
     out = torch.empty_like(a)
+    wc = bigint.word_constants(mod, a.device)
     fn = build.load().fn("cios_montmul_launch")
     err = fn(a.data_ptr(), mod.L, b.data_ptr(),
-             mod.L if b.dim() == 2 else 0, out.data_ptr(), batch,
-             bigint.const(mod.limbs, a.device).data_ptr(), mod.L, mod.n0inv,
+             mod.L if b.dim() == 2 else 0, out.data_ptr(), batch, mod.L,
+             wc.table.data_ptr(), wc.W, wc.n0inv,
              torch.cuda.current_stream(a.device).cuda_stream)
     build.check(err, "montmul")
     montmul_tiled.launches += 1

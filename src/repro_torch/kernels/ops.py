@@ -95,8 +95,13 @@ def he_matvec_fused(cts: torch.Tensor, digits: torch.Tensor, mod: Modulus,
     """Windowed CIOS HE matvec: cts (n, L) Montgomery ciphertexts, digits
     (n, m, levels) MSB-first window digits → (m, L) canonical ciphertexts
     of Σ_i exps[i,j]·m_i.  Rows fold in chunks (K7); padding rows hold
-    mont(1) with zero digits; the chunk partials ⊕-combine with K5."""
+    mont(1) with zero digits; the chunk partials ⊕-combine with K5.  On
+    the card a chunk is cut to the rows whose power table fits in
+    shared memory (the result does not depend on the chunk)."""
     digits = digits.to(device=cts.device, dtype=torch.int32)
+    if cts.is_cuda:
+        chunk = max(1, min(chunk, montexp.matvec_rows_fit(
+            mod, window, digits.shape[1])))
     pad = (-cts.shape[0]) % chunk
     dt = digits.permute(2, 0, 1)                       # (levels, n, m)
     u = cts.contiguous()

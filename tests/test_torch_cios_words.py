@@ -1,10 +1,14 @@
-"""CPU checks of K6's design (`csrc/cios_words.cuh`, `csrc/cios_montexp.cu`):
-32-bit words, the lazy CIOS round, the warp's carry-lookahead finish and
-the right-to-left ladder with its domain conversions.  The kernel runs
-only on a card, so a lane-level numpy model of its arithmetic (the same
-index maths, the same uint64 partials, the same ballots) is held against
-Python integers and against the JAX package's `repro.crypto.bigint`
-ladder.  Every comparison is exact."""
+"""CPU checks of the CIOS kernels' design on 32-bit words
+(`csrc/cios_words.cuh`): the lazy CIOS round, the warp's carry-lookahead
+finish, and on it K6's right-to-left ladder (`csrc/cios_montexp.cu`),
+K5's two-product form (`csrc/cios_montmul.cu`) and K7's word-domain
+power table and two-warp level order (`csrc/cios_matvec.cu`), with their
+domain conversions.  The kernels run only on a card, so a lane-level
+numpy model of their arithmetic (the same index maths, the same uint64
+partials, the same ballots, the same order of products) is held against
+Python integers, the port's plain versions and the JAX package's
+`repro.crypto.bigint` ladder and its Pallas kernels in interpret mode.
+Every comparison is exact."""
 import numpy as np
 import pytest
 import torch
@@ -13,8 +17,11 @@ import jax.numpy as jnp
 
 from repro.crypto import bigint as jbig
 from repro.crypto import paillier as jpai
+from repro.kernels import montexp as jmontexp
+from repro.kernels import montmul as jmontmul
 
 from repro_torch.crypto import bigint as tbig
+from repro_torch.kernels import montexp as tmontexp
 
 RNG = np.random.default_rng(47)
 M32 = np.uint64(0xFFFFFFFF)
@@ -67,6 +74,13 @@ def pack(limbs: np.ndarray, L: int, W: int, S: int) -> np.ndarray:
     return out.reshape(-1, 32, S)
 
 
+def top_word(limbs: np.ndarray, L: int, W: int) -> np.ndarray:
+    """cios_words.cuh:limb_word(limbs, L, W): the bits of an L-limb value
+    above word W - 1, (rows,)."""
+    return pack(limbs, L, W + 1, -(-(W + 1) // 32)).reshape(
+        limbs.shape[0], -1)[:, W]
+
+
 def unpack(x: np.ndarray, L: int, W: int) -> np.ndarray:
     """cios_montexp.cu:unpack_limbs: limb j from words 12j/32 and the next
     when it straddles them."""
@@ -93,14 +107,16 @@ def lane_carry(g: np.ndarray, p: np.ndarray):
     return (c[:, None] >> LANES) & np.uint64(1), top
 
 
-def montmul(a, b, n, n0inv: int, W: int) -> np.ndarray:
-    """cios_words.cuh:montmul on (rows, 32, S) words; n is (32, S)."""
+def montmul(a, b, n, n0inv: int, W: int, top=None) -> np.ndarray:
+    """cios_words.cuh:montmul on (rows, 32, S) words; n is (32, S).  top
+    (rows,) words: the kTop form, one more round for word W of a."""
     rows, _, S = a.shape
     assert S >= 2                                 # words 0 and 1 in lane 0
     t = np.zeros_like(a)
     pend = np.zeros((rows, 32), np.uint64)
-    for i in range(W):
-        ai = a[:, i // S, i % S][:, None, None]
+    tops = [] if top is None else [np.asarray(top, np.uint64)]
+    for ai in [a[:, i // S, i % S] for i in range(W)] + tops:
+        ai = ai[:, None, None]
         m = (((t[:, 0, 0] & M32) + ai[:, 0, 0] * b[:, 0, 0])
              * np.uint64(n0inv)) & M32
         t[:, :, -1] += pend                        # last round's, after m
@@ -155,18 +171,24 @@ def montmul(a, b, n, n0inv: int, W: int) -> np.ndarray:
     return out
 
 
-def ladder(base: np.ndarray, bits: np.ndarray, mod) -> np.ndarray:
-    """cios_montexp.cu's ladder: base (rows, L) canonical R-domain limbs,
-    bits (rows, nbits) or (nbits,) MSB-first -> (rows, L) limbs."""
+def word_domain(mod):
+    """W, S, n0inv and the constant rows (n, one, c_in, c_out, c_wide) as
+    (1, 32, S) lane arrays, from `bigint.word_constants`."""
     wc = tbig.word_constants(mod, "cpu")
     W, S = wc.W, words_per_lane(wc.W)
     table = wc.table.numpy().view(np.uint32).astype(np.uint64)
-    n, one, c_in, c_out = (lanes(row[None], S) for row in table)
+    return W, S, wc.n0inv, [lanes(row[None], S) for row in table]
+
+
+def ladder(base: np.ndarray, bits: np.ndarray, mod) -> np.ndarray:
+    """cios_montexp.cu's ladder: base (rows, L) canonical R-domain limbs,
+    bits (rows, nbits) or (nbits,) MSB-first -> (rows, L) limbs."""
+    W, S, n0inv, (n, one, c_in, c_out, _) = word_domain(mod)
     rows = base.shape[0]
     bits = np.broadcast_to(bits, (rows, bits.shape[-1]))
 
     def mm(a, b):
-        return montmul(a, np.broadcast_to(b, a.shape), n[0], wc.n0inv, W)
+        return montmul(a, np.broadcast_to(b, a.shape), n[0], n0inv, W)
     u = mm(pack(base, mod.L, W, S), c_in)
     acc = np.broadcast_to(one, u.shape).copy()
     for k in range(bits.shape[1] - 1, -1, -1):
@@ -174,6 +196,75 @@ def ladder(base: np.ndarray, bits: np.ndarray, mod) -> np.ndarray:
         if k > 0:
             u = mm(u, u)
     return unpack(mm(acc, c_out), mod.L, W)
+
+
+def k5(a: np.ndarray, b: np.ndarray, mod) -> np.ndarray:
+    """cios_montmul.cu: a (rows, L) limbs, b (rows, L) or one shared (L,)
+    row, each below R -> a·b·R^-1 limbs: b' = mont_E(b, c_wide) (once for
+    a shared b), then mont_E(a, b'), each a kTop product with its first
+    operand's top word."""
+    W, S, n0inv, (n, _, _, _, c_wide) = word_domain(mod)
+    L = mod.L
+
+    def mm_e(x_limbs, y):
+        x = pack(x_limbs, L, W, S)
+        return montmul(x, np.broadcast_to(y, x.shape), n[0], n0inv, W,
+                       top=top_word(x_limbs, L, W))
+    bp = mm_e(np.atleast_2d(b), c_wide)
+    return unpack(mm_e(a, bp), L, W)
+
+
+def fold_split(chunk: int, window: int, lvl: int) -> int:
+    """cios_matvec.cu:fold_split: rows of the chunk warp 0 folds."""
+    k = (chunk - 1) // 2 if lvl == 0 else (chunk - window - 2) // 2
+    return max(k, 0)
+
+
+def k7(cts: np.ndarray, digits: np.ndarray, mod, window: int,
+       chunk: int) -> np.ndarray:
+    """cios_matvec.cu: cts (nrows, L) limbs, digits (levels, nrows, m)
+    MSB-first -> (nrows / chunk, m, L) partials, in the kernel's order:
+    the table (c·c_in, then c^2k = (c^k)^2 and c^2k+1 = c^2k·c), then per
+    level warp 0's squarings and its fold of rows [0, split), warp 1's
+    fold of rows [split, chunk), one join; one product by c_out."""
+    W, S, n0inv, (n, one, c_in, c_out, _) = word_domain(mod)
+    levels, nrows, m = digits.shape
+    nch, npow = nrows // chunk, 1 << window
+
+    def mm(x, y):
+        x, y = np.broadcast_arrays(x, y)
+        return montmul(x, y, n[0], n0inv, W)
+    c = mm(pack(cts, mod.L, W, S), c_in)
+    table = [np.broadcast_to(one, c.shape), c]
+    for p in range(2, npow):
+        table.append(mm(table[p - 1], c) if p % 2 else
+                     mm(table[p // 2], table[p // 2]))
+    table = np.stack(table, axis=1).reshape(nch, chunk, npow, 32, S)
+
+    def select(lvl, i):
+        """(nch * m, 32, S) one-hot selects of row i of every chunk."""
+        d = digits[lvl].reshape(nch, chunk, m)[:, i]          # (nch, m)
+        sel = np.zeros((nch, m, 32, S), np.uint64)
+        for p in range(npow):
+            mask = np.where(d == p, M32, np.uint64(0))[..., None, None]
+            sel |= table[:, i, p][:, None] & mask
+        return sel.reshape(nch * m, 32, S)
+
+    def fold(acc, fresh, lvl, i0, i1):
+        for i in range(i0, i1):
+            acc = select(lvl, i) if fresh and i == i0 else \
+                mm(acc, select(lvl, i))
+        return acc
+    acc = np.broadcast_to(one, (nch * m, 32, S))
+    for lvl in range(levels):
+        split = fold_split(chunk, window, lvl)
+        prod = fold(None, True, lvl, split, chunk)             # warp 1
+        if lvl > 0:                                            # warp 0
+            for _ in range(window):
+                acc = mm(acc, acc)
+        acc = fold(acc, lvl == 0, lvl, 0, split)
+        acc = prod if lvl == 0 and split == 0 else mm(acc, prod)  # join
+    return unpack(mm(acc, c_out), mod.L, W).reshape(nch, m, mod.L)
 
 
 # ---------------------------------------------------------------------------
@@ -209,15 +300,21 @@ def test_word_constants_match_definitions(n):
     rp, r = 1 << (32 * W), 1 << (12 * mod.L)
     assert wc.W == W and (n * wc.n0inv + 1) % (1 << 32) == 0
     assert 0 <= wc.n0inv < 1 << 32
-    assert wc.table.dtype == torch.int32 and wc.table.shape == (4, W)
+    assert wc.table.dtype == torch.int32 and wc.table.shape == (5, W)
     table = wc.table.numpy().view(np.uint32)
-    want = [n, rp % n, rp * rp * pow(r, -1, n) % n, r % n]
+    e = rp << 32                          # K5's products: one word more
+    want = [n, rp % n, rp * rp * pow(r, -1, n) % n, r % n,
+            e * e * pow(r, -1, n) % n]
     assert [int_of(row) for row in table] == want
+    assert r < e                          # every L-limb value fits
     # c_in takes x·R to x·R', c_out takes y·R' to y·R (products by R'^-1)
-    x = residues(n, 1)[0]
+    x, y = residues(n, 2)
     rpi = pow(rp, -1, n)
     assert x * r % n * want[2] * rpi % n == x * rp % n
     assert x * rp % n * want[3] * rpi % n == x * r % n
+    # c_wide: mont_E(a, mont_E(b, c_wide)) = a·b·R^-1 (products by E^-1)
+    ei = pow(e, -1, n)
+    assert x * (y * want[4] * ei % n) * ei % n == x * y * pow(r, -1, n) % n
     assert tbig.word_constants(mod, "cpu") is wc                 # cached
     assert int_of(tbig.int_to_words(n, W)) == n
 
@@ -236,6 +333,13 @@ def test_word_product_model_matches_integers(n):
     got = montmul(a, b, nw, wc.n0inv, W)
     rpi = pow(1 << (32 * W), -1, n)
     assert [int_of(row) for row in got] == [x * y * rpi % n
+                                           for x, y in zip(xs, ys)]
+    # the kTop form: a of W + 1 words, any value below 2^(32 W + 32)
+    e = 1 << (32 * (W + 1))
+    xs = xs[:6] + [e - 1, n, (1 << (12 * mod.L)) - 1] * 2 + [0, n - 1, 1]
+    a = lanes(np.stack([words_of(x, W) for x in xs]), S)
+    got = montmul(a, b, nw, wc.n0inv, W, top=[x >> (32 * W) for x in xs])
+    assert [int_of(row) for row in got] == [x * y * pow(e, -1, n) % n
                                            for x, y in zip(xs, ys)]
 
 
@@ -268,3 +372,77 @@ def test_word_ladder_matches_reference(key, shared):
         want = np.asarray(jbig.mont_exp_bits(jnp.asarray(base),
                                              jnp.asarray(bits), jm))
         assert np.array_equal(ladder(base, bits, tm), want)
+
+
+def mont_rows(n: int, L: int, ints) -> np.ndarray:
+    """Montgomery forms x·R mod N of `ints` as (rows, L) int64 limbs."""
+    r = 1 << (12 * L)
+    return jbig.ints_to_limbs([x * r % n for x in ints], L).astype(np.int64)
+
+
+def test_k5_two_product_form_matches_reference(key):
+    """K5's word form equals the port's plain `bigint.mont_mul` and the
+    reference's `montmul_tiled` in interpret mode, at n² and p²: per-row
+    b and a shared b (0, mont(1), mont(N − 1), random), with 0, mont(1)
+    and mont(N − 1) among the operands, and operands in [N, R) against
+    canonical ones (R − 1, N, N + 1: `paillier._fold_below` passes such
+    values through `to_mont`)."""
+    for jm in (key.pub.mod_n2, key.crt_p.mod_p2):
+        tm = tbig.Modulus.make(jm.value)
+        n, big = jm.value, (1 << (12 * jm.L)) - 1
+        a = np.concatenate([mont_rows(n, jm.L, [0, 1, n - 1] +
+                                      residues(n, 5)),
+                            jbig.ints_to_limbs([big, n, n + 1],
+                                               jm.L).astype(np.int64)])
+        b = mont_rows(n, jm.L, residues(n, 5) + [n - 1, 1, 0] +
+                      residues(n, 3))
+        want = np.asarray(jmontmul.montmul_tiled(
+            jnp.asarray(a.astype(np.uint32)), jnp.asarray(b.astype(np.uint32)),
+            jnp.asarray(jm.limbs), n0inv=jm.n0inv, L=jm.L, tile_b=11))
+        got = k5(a, b, tm)
+        assert np.array_equal(got, want)
+        assert np.array_equal(got, tbig.mont_mul(torch.as_tensor(a),
+                                                 torch.as_tensor(b),
+                                                 tm).numpy())
+        assert np.array_equal(k5(b, a, tm), got)             # b in [N, R)
+        for row in (b[5], b[6], b[7], b[0]):                 # stride 0
+            want = tbig.mont_mul(torch.as_tensor(a), torch.as_tensor(row),
+                                 tm).numpy()
+            assert np.array_equal(k5(a, row, tm), want)
+        for row in a[-3:]:                           # a shared row >= N
+            want = tbig.mont_mul(torch.as_tensor(b), torch.as_tensor(row),
+                                 tm).numpy()
+            assert np.array_equal(k5(b, row, tm), want)
+
+
+@pytest.mark.parametrize("window,chunk", [(1, 16), (4, 16), (8, 16), (4, 2)],
+                         ids=["w1", "w4", "w8", "w4_chunk2"])
+def test_k7_word_table_and_level_order_match_reference(key, window, chunk):
+    """K7's word-domain power table and two-warp level order equal the
+    port's plain `cios_matvec_partials` and, chunk by chunk, the
+    reference's `he_matvec_tiled` in interpret mode, on 32 rows × 3
+    columns × 2 levels of n²: column 0 random digits, column 1 all zero,
+    column 2 all 2^window − 1.  (The reference's window-8 kernel takes
+    5 s to compile a modulus, so it runs at the 128-bit key only.)"""
+    jm = key.pub.mod_n2
+    tm = tbig.Modulus.make(jm.value)
+    n, rows, levels = jm.value, 32, 2
+    cts = mont_rows(n, jm.L, [1, n - 1] + residues(n, rows - 2))
+    digits = np.zeros((levels, rows, 3), np.int32)
+    digits[..., 0] = RNG.integers(0, 1 << window, size=(levels, rows))
+    digits[..., 2] = (1 << window) - 1
+    got = k7(cts, digits, tm, window, chunk)
+    want = tmontexp.cios_matvec_partials(
+        torch.as_tensor(cts), torch.as_tensor(digits), tm, window, chunk)
+    assert np.array_equal(got, want.numpy())
+    assert np.array_equal(got[:, 1], np.broadcast_to(
+        mont_rows(n, jm.L, [1]), (rows // chunk, jm.L)))     # all zero: one
+    if chunk == 16 and (window < 8 or key.pub.key_bits == 128):
+        for c in range(rows // chunk):
+            part = slice(c * chunk, (c + 1) * chunk)
+            ref = jmontexp.he_matvec_tiled(
+                jnp.asarray(cts[part].astype(np.uint32)),
+                jnp.asarray(digits[:, part].astype(np.uint32)),
+                jnp.asarray(jm.limbs), jnp.asarray(jm.r1), n0inv=jm.n0inv,
+                L=jm.L, window=window, tile_m=3)
+            assert np.array_equal(got[c], np.asarray(ref))
