@@ -14,8 +14,13 @@ CIOS product, and K7, the CIOS windowed matvec, on the sweep of
 `repro_torch.bench.matvec_check`: K5 at every row count its launch
 shape branches on with per-row and shared operands, K7 through
 `ops.he_matvec_fused` at row counts on and off the chunk, 1 to 13
-columns, windows 1, 4 and 8, extreme digits; K8, the Z_2^64 matrix
-product, at four shapes up to 2048³ and on all-ones operands),
+columns, windows 1, 4 and 8, extreme digits; K3, the RNS windowed
+matvec, and K4, the fixed-base walk, on the sweeps of
+`repro_torch.bench.round_check`: every launch shape their pickers
+return from 1 to 2048 rows, windows 1 to 8 (K4 at windows 7 and 8 on
+n² of a 1024-bit key among them), extreme digits, then timed at the
+main path's shapes back to back and in a CUDA graph; K8, the Z_2^64
+matrix product, at four shapes up to 2048³ and on all-ones operands),
 checks 1024-bit Paillier on the card on both arithmetic pipelines,
 then drives Algorithm 1 training at the paper's Table 1 configuration
 (credit-default twin, 2 parties × 12 features, batch 2048, 1024-bit
@@ -29,7 +34,8 @@ keys) through `repro_torch.core.trainer.train_vfl` three ways:
   CRT-decrypt ladders;
 
 each against the mock backend (losses, weights, per-tag bytes and rounds
-bit for bit), and checks that every kernel of each path launched.  Then
+bit for bit), and checks that every kernel of each path launched (K1
+exactly 162 times on the RNS path and 150 on path B).  Then
 a crossover probe times the RNS and CIOS Montgomery products at 256 to
 2048 bits, and the port's crypto kernel benchmark
 (`repro_torch.bench.kernel_bench`, the rows of ``python -m
@@ -248,9 +254,9 @@ def _max_err(got, want) -> float:
 def phase_rns_kernels(ctx_n2, ctx_p2, results):
     import numpy as np
     import torch
+    from repro_torch.bench import matvec_check, round_check
     from repro_torch.crypto import rns
     from repro_torch.kernels import montexp, montmul
-    from repro_torch.kernels.ops import MATVEC_CHUNK as CHUNK
     dev = torch.device("cuda")
     gen = np.random.default_rng(7)
 
@@ -292,13 +298,16 @@ def phase_rns_kernels(ctx_n2, ctx_p2, results):
                     montmul.rns_montmul_tiled(a, b, c), montmul.plain(a, b, c),
                     c)
     ms = time_ms(lambda: montmul.rns_montmul_tiled(x, y, ctx), 20)
+    dev_ms = matvec_check.graph_ms(
+        lambda: montmul.rns_montmul_tiled(x, y, ctx), 20)
     plain_ms = time_ms(lambda: montmul.plain(x, y, ctx), 5)
     b, by = bound(3 * 2048 * ctx.CH * 4, 2048, ctx)
-    results["rns_montmul"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b, bound_by=by)
+    results["rns_montmul"] = dict(max_abs_err=err, ms=ms, graph_ms=dev_ms,
+                                  plain_ms=plain_ms, bound_ms=b, bound_by=by)
     log(f"[kernels] rns_montmul (2048, {ctx.CH}): equal (and shared, and "
         f"extreme states at CH {ctx_n2.CH} and {ctx_p2.CH}); {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by})")
+        f"{dev_ms:.4f} ms in a CUDA graph, plain {plain_ms:.4f} ms, bound "
+        f"{b:.5f} ms ({by})")
 
     # K2 at (256, CH of n²) with per-row 1024-bit exponents, timed against
     # the plain ladder
@@ -367,61 +376,83 @@ def phase_rns_kernels(ctx_n2, ctx_p2, results):
         log(f"[kernels] rns_mont_exp ({rows}, {c.CH}) x {nb} shared bits: "
             f"equal; {msn:.3f} ms, bound {bn:.5f} ms ({byn})")
 
-    # K3 at nrows 2048, m 12, 6 levels of window 4
+    # K3 and K4 on the sweeps of `repro_torch.bench.round_check`: every
+    # row count, level count and window their launch shapes branch on
+    n4 = round_check.sweep_fixed_base(log)
+    n3 = round_check.sweep_matvec(log)
+    sms = montexp.sm_count(dev)
+
+    # K3 at nrows 2048, m 12, 6 levels of window 4, the fold of its chunk
+    # partials and the exit round included
     cts = _random_states(ctx, 2048, gen, dev)
     digits = torch.as_tensor(gen.integers(0, 16, size=(6, 2048, 12)),
                              dtype=torch.int32, device=dev)
-    got = montexp.rns_he_matvec_tiled(cts, digits, ctx, window=4,
-                                      chunk=CHUNK)
+    sh = montexp.matvec_shape(2048, 12, 6, 4, ctx, sms)
+
+    def k3():
+        return montexp.rns_he_matvec_tiled(cts, digits, ctx, window=4,
+                                           shape=sh)
+    got = k3()
     t0 = time.perf_counter()
-    want = montexp.plain_matvec(cts, digits, ctx, 4, CHUNK)
+    want = montexp.plain_matvec(cts, digits, ctx, 4, sh.chunk, sh.split)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err = compare("rns_he_matvec (2048 rows, m 12, 6 levels)",
-                  got.reshape(-1, ctx.CH), want.reshape(-1, ctx.CH), ctx)
-    ms = time_ms(lambda: montexp.rns_he_matvec_tiled(cts, digits, ctx,
-                                                     window=4, chunk=CHUNK),
-                 3)
-    # the least work of the function, not of this kernel's chunked design
-    # (an RNS square is a whole round)
+    err = compare("rns_he_matvec (2048 rows, m 12, 6 levels)", got, want,
+                  ctx)
+    ms = time_ms(k3, 3)
+    dev_ms = matvec_check.graph_ms(k3, 3)
+    # the least work of the function, not of this kernel's design (an RNS
+    # square is a whole round), and the exit round of each column
     products, squares = matvec_work(digits, 4)
-    rounds = products + squares
+    rounds = products + squares + 12
     b, by = bound(cts.numel() * 4 + digits.numel() * 4 + 12 * ctx.CH * 4,
                   rounds, ctx)
-    results["rns_he_matvec"] = dict(max_abs_err=err, ms=ms,
+    results["rns_he_matvec"] = dict(max_abs_err=err, ms=ms, graph_ms=dev_ms,
                                     plain_ms=plain_ms, bound_ms=b,
-                                    bound_by=by)
-    log(f"[kernels] rns_he_matvec (2048 rows, m 12, 6 levels): equal; "
-        f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.5f} ms ({by})")
+                                    bound_by=by, sweep=n3)
+    log(f"[kernels] rns_he_matvec (2048 rows, m 12, 6 levels, {sh}): equal; "
+        f"{ms:.3f} ms, {dev_ms:.3f} ms in a CUDA graph, plain "
+        f"{plain_ms:.1f} ms, bound {b:.5f} ms ({by})")
 
-    # K4 at the noise shapes: a (80, 16, CH) table, digits (2048, 80) for
+    # K4 at the noise shapes: an (80, 16, CH) table, digits (2048, 80) for
     # the ⟨d⟩ encryption and (12, 80) for the masks
     levels, npow = 80, 16
     table = _random_states(ctx, levels * npow, gen, dev).reshape(
         levels, npow, ctx.CH).contiguous()
+    operand = montexp.fixed_base_operand(table)
+    results["rns_fixed_base"] = dict(shapes=[], sweep=n4)
     for rows in (2048, 12):
         dg = torch.as_tensor(gen.integers(0, npow, size=(rows, levels)),
                              dtype=torch.int32, device=dev)
-        got = montexp.rns_fixed_base_tiled(table, dg, ctx, window=4)
+        sh = montexp.fixed_base_shape(rows, levels, 4, ctx, "cuda")
+
+        def k4():
+            return montexp.rns_fixed_base_tiled(operand, dg, ctx, window=4,
+                                                shape=sh)
+        got = k4()
         t0 = time.perf_counter()
-        want = montexp.plain_fixed_base(table, dg, ctx)
+        want = montexp.plain_fixed_base(table, dg, ctx, sh.segments)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = compare(f"rns_fixed_base ({rows}, {ctx.CH}) x {levels} levels",
                       got, want, ctx)
-        ms = time_ms(lambda: montexp.rns_fixed_base_tiled(table, dg, ctx,
-                                                          window=4), 5)
-        # one round a non-zero digit (a zero digit selects 1), one exit
-        b, by = bound(table.numel() * 4 + dg.numel() * 4
-                      + rows * ctx.CH * 4,
+        ms = time_ms(k4, 5)
+        dev_ms = matvec_check.graph_ms(k4, 5)
+        # one round a non-zero digit (a zero digit selects 1), the fold of
+        # the level segments, one exit
+        b, by = bound(operand.numel() * operand.element_size()
+                      + dg.numel() * 4 + rows * ctx.CH * 4,
                       int(dg.count_nonzero().item()) + rows, ctx)
         log(f"[kernels] rns_fixed_base ({rows}, {ctx.CH}) x {levels} "
-            f"levels: equal; {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-            f"{b:.5f} ms ({by})")
+            f"levels ({sh}): equal; {ms:.3f} ms, {dev_ms:.3f} ms in a CUDA "
+            f"graph, plain {plain_ms:.1f} ms, bound {b:.5f} ms ({by})")
+        results["rns_fixed_base"]["shapes"].append(dict(
+            rows=rows, CH=ctx.CH, levels=levels, ms=ms, graph_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=b, bound_by=by))
         if rows == 2048:
-            results["rns_fixed_base"] = dict(max_abs_err=err, ms=ms,
-                                             plain_ms=plain_ms, bound_ms=b,
-                                             bound_by=by)
+            results["rns_fixed_base"].update(
+                max_abs_err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by)
 
 
 def phase_cios_kernels(mod_n2, mod_p2, results):
@@ -746,9 +777,12 @@ def phase_train(results, mock):
     res, launches, wall, peak = counted_run(
         lambda: train_vfl(parties, y, VFLConfig(he_backend="paillier", **kw)))
     check_equal("RNS path", res, mock)
+    # K1: 54 products an iteration; K3 folds its chunk partials and applies
+    # the exit round itself (210 K1 launches before it did)
     require("RNS path", launches,
             positive=("rns_montmul", "rns_mont_exp", "rns_he_matvec"),
-            zero=("rns_fixed_base", "montmul", "mont_exp", "he_matvec"))
+            zero=("rns_fixed_base", "montmul", "mont_exp", "he_matvec"),
+            exact={"rns_montmul": 54 * ITERS, "rns_he_matvec": 2 * ITERS})
     for k in ("rns_montmul", "rns_mont_exp", "rns_he_matvec"):
         results.setdefault(k, {})["launches"] = launches[k]
     log(f"[train] Table 1 config (n=30000, keys 1024 bits, batch 2048), "
@@ -842,11 +876,14 @@ def phase_path_b(results, mock):
                                                    **kw), backend=backend)
         res, launches, wall, peak = counted_run(run)
         check_equal("path B (tables)", res, mock)
-        # K2 runs only the CRT-decrypt ladders: 2 decryptions of 2 primes
+        # K2 runs only the CRT-decrypt ladders: 2 decryptions of 2 primes;
+        # K4 the ⟨d⟩ noise and the masks; K1 50 products an iteration
         require("path B (tables)", launches,
                 positive=("rns_fixed_base", "rns_montmul", "rns_he_matvec"),
                 zero=("montmul", "mont_exp", "he_matvec"),
-                exact={"rns_mont_exp": 4 * ITERS})
+                exact={"rns_mont_exp": 4 * ITERS, "rns_montmul": 50 * ITERS,
+                       "rns_fixed_base": 4 * ITERS,
+                       "rns_he_matvec": 2 * ITERS})
         results.setdefault("rns_fixed_base", {})["launches"] = \
             launches["rns_fixed_base"]
         log(f"[path B] Table 1, paillier with fixed-base table noise, "

@@ -154,7 +154,7 @@ class CryptoEngine:
         holds ·B-domain channel states."""
         digits = digits.to(torch.int32)
         self.check_device(digits)
-        return ops.rns_fixed_base(table.states(digits.device), digits, mod,
+        return ops.rns_fixed_base(table.operand(digits.device), digits, mod,
                                   window=table.window)
 
     def to_mont(self, a, mod: Modulus) -> torch.Tensor:

@@ -119,6 +119,16 @@ class FixedBaseTable:
                 self.table_rns.astype(np.int32), device=device).contiguous()
         return self._dev[key]
 
+    def operand(self, device) -> torch.Tensor:
+        """The table in the form K4 reads: int16 residues in rows padded
+        to whole 16-byte words (`kernels.montexp.fixed_base_operand`),
+        converted once per device."""
+        from repro_torch.kernels import montexp
+        key = "operand:" + str(torch.device(device))
+        if key not in self._dev:
+            self._dev[key] = montexp.fixed_base_operand(self.states(device))
+        return self._dev[key]
+
 
 def exp_digits(exps, levels: int, window: int) -> np.ndarray:
     """LSB-first base-2^window digits: (batch,) ints → (batch, levels)

@@ -22,7 +22,7 @@ is exact in any summation order (no TF32 path exists for float64).
 Conversions to and from radix-2^12 limbs (`to_rns`, `to_rns_scaled`,
 `from_rns`) are plain torch on the tensors' device.  The Montgomery
 round (`montmul_channels`), the ladder (`mont_exp_channels`), the
-chunked windowed matvec (`he_matvec_partials`) and the fixed-base walk
+windowed matvec (`he_matvec_channels`) and the fixed-base walk
 (`fixed_base_channels`) are the plain versions of the CUDA kernels
 K1–K4 in `repro_torch.kernels`; both produce identical channel states.
 The limb-level peers of the reference's `mont_mul`, `mont_exp_bits`,
@@ -365,55 +365,98 @@ def mont_exp_channels(u: torch.Tensor, bits: torch.Tensor,
     return montmul_channels(acc, d["exit"], ctx)
 
 
-def he_matvec_partials(u: torch.Tensor, digits: torch.Tensor,
-                       ctx: RNSContext, window: int,
-                       chunk: int) -> torch.Tensor:
-    """Per-chunk windowed matvec on channel states.  u: (nrows, CH) with
-    nrows a multiple of `chunk`; digits: (levels, nrows, m) MSB-first.
-    Chunk c folds rows [c·chunk, (c+1)·chunk): a 2^window power table per
-    row, then per level `window` squarings of the (m, CH) accumulator and
-    a sequential fold of the selected powers.  Returns (n_chunks, m, CH)
-    ·B-domain partials.  Plain version of K3."""
+def stride_fold(states: torch.Tensor, round_fn) -> torch.Tensor:
+    """⊕-reduce axis 0 in log depth with `round_fn(x, y)` (one call a
+    level), in the order of K4's cluster fold (`csrc/rns_cluster.cuh`)
+    and K3's tree of tickets (`csrc/rns_matvec.cu`): each level pairs
+    elements 2i and 2i + 1, an odd last one going up unchanged (for
+    s = 1, 2, 4, …, element r with r % 2s == 0 and r + s < n takes
+    round(x_r, x_{r+s}))."""
+    while states.shape[0] > 1:
+        n = states.shape[0]
+        merged = round_fn(states[0:n - 1:2], states[1:n:2])
+        if n % 2:
+            merged = torch.cat([merged, states[n - 1:]], dim=0)
+        states = merged
+    return states[0]
+
+
+def he_matvec_channels(u: torch.Tensor, digits: torch.Tensor,
+                       ctx: RNSContext, window: int, chunk: int,
+                       split: int) -> torch.Tensor:
+    """Windowed matvec on channel states, in the fold order of K3 at the
+    shape `kernels.montexp.matvec_shape` picks.  u: (nrows, CH) ·B-domain
+    states, nrows a multiple of chunk; digits: (levels, nrows, m)
+    MSB-first.  Returns (m, CH) int32 states of the column products ·R.
+
+    1. Chunk c (rows [c·chunk, (c+1)·chunk)) builds its rows' powers
+       c_i^p = c_i^(p-1)·c_i, p < 2^window.
+    2. Per level it runs two chains a column: chain A squares the
+       accumulator `window` times and then folds the selected powers of
+       rows 0 … split−1; chain B starts at one and folds rows split …
+       chunk−1; max(window + split, chunk − split) rounds, each advancing
+       both chains, then one round A·B.
+    3. The chunk partials fold by `stride_fold` (K3's tree of tickets),
+       then one round against `exit`."""
     d = ctx.tables(u.device)
     nrows, CH = u.shape
     levels, _, m = digits.shape
     nch = nrows // chunk
     one = d["one"]
+
+    def mm(x, y):
+        return montmul_channels(x, y, ctx)
     uc = u.reshape(nch, chunk, CH)
     table = [one.expand(uc.shape), uc]
     for _ in range(2, 1 << window):
-        table.append(montmul_channels(table[-1], uc, ctx))
-    table = torch.stack(table, dim=0)                  # (npow, nch, C, CH)
+        table.append(mm(table[-1], uc))
+    table = torch.stack(table, dim=1)                  # (nch, npow, C, CH)
     dg = digits.to(torch.int64).reshape(levels, nch, chunk, m)
+    ch_idx = torch.arange(nch, device=u.device)[:, None]
+
+    def sel(lvl, i):                                   # (nch, m, CH)
+        return table[ch_idx, dg[lvl, :, i, :], i]
     acc = one.expand(nch, m, CH)
+    rounds = max(window + split, chunk - split)
     for lvl in range(levels):
-        for _ in range(window):
-            acc = montmul_channels(acc, acc, ctx)
-        prod = one.expand(nch, m, CH)
-        for i in range(chunk):
-            idx = dg[lvl, :, i, :]                      # (nch, m)
-            rows = table[:, :, i, :]                   # (npow, nch, CH)
-            sel = torch.gather(
-                rows.permute(1, 0, 2), 1,
-                idx[..., None].expand(nch, m, CH))     # (nch, m, CH)
-            prod = montmul_channels(prod, sel, ctx)
-        acc = montmul_channels(acc, prod, ctx)
-    return acc
+        b = one.expand(nch, m, CH)
+        for k in range(rounds):
+            if k < window:
+                acc = mm(acc, acc)
+            elif k - window < split:
+                acc = mm(acc, sel(lvl, k - window))
+            if k < chunk - split:
+                b = mm(b, sel(lvl, split + k))
+        acc = mm(acc, b)
+    z = stride_fold(acc, mm)
+    return mm(z, d["exit"])
 
 
 def fixed_base_channels(table: torch.Tensor, digits: torch.Tensor,
-                        ctx: RNSContext) -> torch.Tensor:
-    """Fixed-base walk on channel states: table (levels, 2^w, CH) holds
-    the ·B-domain states of h^(d·2^(w·lvl)); digits (batch, levels) are
-    LSB-first base-2^w digits of each exponent.  One round per level
-    folds the selected entry (digit 0 selects the state of one), then
-    one round against `exit` → (batch, CH) int32 states of h^e·R.  Plain
-    version of K4."""
+                        ctx: RNSContext, segments: int = 1) -> torch.Tensor:
+    """Fixed-base walk on channel states, in the fold order of K4 at the
+    shape `kernels.montexp.fixed_base_shape` picks: table (levels, 2^w,
+    ≥ CH) holds the ·B-domain states of h^(d·2^(w·lvl)) in its first CH
+    channels (int32 states, or K4's padded int16 operand); digits (batch,
+    levels) are LSB-first base-2^w digits of each exponent.  The levels
+    split into `segments` runs [s·levels // segments, (s+1)·levels //
+    segments); each walks its run from the state of one, one round per
+    level folding the selected entry (digit 0 selects the state of one);
+    the runs' partials fold by `stride_fold`, then one round against
+    `exit` → (batch, CH) int32 states of h^e·R."""
     d = ctx.tables(table.device)
     digits = digits.to(torch.int64)
-    acc = d["one"].expand(digits.shape[0], ctx.CH)
-    for lvl in range(table.shape[0]):
-        acc = montmul_channels(acc, table[lvl][digits[:, lvl]], ctx)
+    levels = table.shape[0]
+    table = table[..., :ctx.CH]
+    parts = []
+    for s in range(segments):
+        acc = d["one"].expand(digits.shape[0], ctx.CH)
+        for lvl in range(s * levels // segments,
+                         (s + 1) * levels // segments):
+            acc = montmul_channels(acc, table[lvl][digits[:, lvl]], ctx)
+        parts.append(acc)
+    acc = stride_fold(torch.stack(parts),
+                      lambda x, y: montmul_channels(x, y, ctx))
     return montmul_channels(acc, d["exit"], ctx)
 
 
@@ -445,18 +488,6 @@ def fixed_base_exp(ctx: RNSContext, table: torch.Tensor,
     flat = digits.reshape(-1, digits.shape[-1])
     out = from_rns(ctx, fixed_base_channels(table, flat, ctx))
     return out.reshape(tuple(bshape) + (ctx.L,))
-
-
-def tree_fold(states: torch.Tensor, round_fn) -> torch.Tensor:
-    """⊕-reduce axis 0 of ·B-domain channel states, pairing the first
-    half with the second (log depth), with `round_fn(x, y)` one round."""
-    while states.shape[0] > 1:
-        half = states.shape[0] // 2
-        merged = round_fn(states[:half], states[half:2 * half])
-        if states.shape[0] % 2:
-            merged = torch.cat([merged, states[2 * half:]], dim=0)
-        states = merged
-    return states[0]
 
 
 # ---------------------------------------------------------------------------

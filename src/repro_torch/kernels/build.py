@@ -34,10 +34,13 @@ _SIGNATURES = {
                            _P, _P, _P, _P],
     "rns_montexp_launch": [_P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _U,
                            _P, _P, _P, _P],
-    "rns_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                          _I, _I, _I, _U, _P, _P, _P, _P],
-    "rns_fixedbase_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                             _U, _P, _P, _P, _P],
+    "rns_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                          _P, _P, _P, _I, _I, _I, _U, _P, _P, _P, _P],
+    "rns_fixedbase_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I,
+                             _I, _I, _I, _U, _P, _P, _P, _P],
+    "rns_fixedbase_cluster_slots": [_I, _I],
+    "rns_fixedbase_smem_bytes": [_I, _I, _I, _I, _I, _I, _I],
+    "rns_matvec_smem_bytes": [_I, _I, _I, _I, _I, _I],
     "cios_montmul_launch": [_P, _LL, _P, _LL, _P, _I, _I, _P, _I, _U, _P],
     "cios_montexp_launch": [_P, _P, _LL, _I, _P, _I, _I, _P, _I, _U, _P],
     "cios_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _U,

@@ -24,9 +24,10 @@ from repro_torch.kernels import montmul as montmul_k
 from repro_torch.kernels import ring_matmul as ringmm_k
 
 
-#: rows per block of the HE matvecs (K3, K7): the rows fold in chunks
+#: rows per block of the CIOS HE matvec (K7): the rows fold in chunks
 #: whose partials ⊕-combine; 16 gives 128 blocks for a 2048-row batch,
-#: about one per SM of an H100
+#: about one per SM of an H100 (K3 takes its chunk from
+#: `montexp.matvec_shape`)
 MATVEC_CHUNK = 16
 
 
@@ -86,7 +87,7 @@ def tree_combine(parts: torch.Tensor, round_fn) -> torch.Tensor:
         flat = round_fn(x.reshape(-1, W).contiguous(),
                         y.reshape(-1, W).contiguous())
         return flat.reshape(x.shape)
-    return rns.tree_fold(parts, combine)
+    return rns.stride_fold(parts, combine)
 
 
 def he_matvec_fused(cts: torch.Tensor, digits: torch.Tensor, mod: Modulus,
@@ -142,12 +143,12 @@ def rns_mont_exp(base: torch.Tensor, bits: torch.Tensor,
     return rns.from_rns(ctx, t).reshape(tuple(bshape) + (mod.L,))
 
 
-def _pad_rows(ctx, u: torch.Tensor, digits: torch.Tensor, chunk: int):
-    """(nrows, CH) states and (n, m, levels) digits → states padded to a
-    multiple of `chunk` with `one` rows, digits as (levels, nrows_pad, m)
-    int32 with zero digits on the padding (pad rows fold `one`, in the
-    kernel and in the plain version alike)."""
-    pad = (-u.shape[0]) % chunk
+def _pad_rows(ctx, u: torch.Tensor, digits: torch.Tensor, nrows: int):
+    """(n, CH) states and (n, m, levels) digits → states padded to
+    `nrows` rows with `one` rows, digits as (levels, nrows, m) int32 with
+    zero digits on the padding (pad rows fold `one`, in the kernel and
+    in the plain version alike)."""
+    pad = nrows - u.shape[0]
     dt = digits.to(torch.int32).permute(2, 0, 1)
     if pad:
         one = ctx.tables(u.device)["one"]
@@ -157,29 +158,34 @@ def _pad_rows(ctx, u: torch.Tensor, digits: torch.Tensor, chunk: int):
 
 
 def rns_he_matvec(cts: torch.Tensor, digits: torch.Tensor, mod: Modulus, *,
-                  window: int, chunk: int = MATVEC_CHUNK) -> torch.Tensor:
+                  window: int, chunk: int | None = None) -> torch.Tensor:
     """Windowed HE matvec: cts (n, L) Montgomery ciphertexts, digits
     (n, m, levels) MSB-first window digits → (m, L) canonical
-    ciphertexts of Σ_i exps[i,j]·m_i.  Rows fold in chunks (K3), the
-    chunk partials ⊕-combine in a log-depth tree of rounds, then one
-    exit round and `from_rns`."""
+    ciphertexts of Σ_i exps[i,j]·m_i.  One K3 launch at the shape
+    `montexp.matvec_shape` picks for the device (`chunk` overrides its
+    rows a chunk) does the whole product: the chunks, their fold and
+    the exit round; then `from_rns`.  Rows are padded to whole chunks
+    with `one` and zero digits."""
     ctx = rns.for_modulus(mod)
     digits = digits.to(device=cts.device)
-    u, dt = _pad_rows(ctx, rns.to_rns_scaled(ctx, cts), digits, chunk)
-    parts = montexp.rns_he_matvec_tiled(u, dt, ctx, window=window,
-                                        chunk=chunk)
-    acc = tree_combine(parts, lambda x, y: montmul_k.rns_montmul_tiled(
-        x, y, ctx))
-    out = montmul_k.rns_montmul_tiled(acc.contiguous(),
-                                      ctx.tables(cts.device)["exit"], ctx)
+    n, m, levels = digits.shape
+    shape = montexp.matvec_shape(n, m, levels, window, ctx,
+                                 montexp.sm_count(cts.device), chunk=chunk)
+    u, dt = _pad_rows(ctx, rns.to_rns_scaled(ctx, cts), digits,
+                      shape.pad_rows(n))
+    out = montexp.rns_he_matvec_tiled(u, dt, ctx, window=window,
+                                      shape=shape)
     return rns.from_rns(ctx, out)
 
 
 def rns_fixed_base(table: torch.Tensor, digits: torch.Tensor, mod: Modulus,
                    *, window: int) -> torch.Tensor:
-    """Fixed-base exponentiation from a ·B-domain table (levels,
-    2^window, CH) int32 on the digits' device (K4): digits (..., levels)
-    LSB-first base-2^window digits → (..., L) canonical limbs of h^e·R."""
+    """Fixed-base exponentiation from a ·B-domain table on the digits'
+    device (K4): the (levels, 2^window, CHP) int16 operand
+    (`FixedBaseTable.operand`, `montexp.fixed_base_operand`; on the CPU
+    also the int32 (levels, 2^window, CH) states); digits (..., levels)
+    LSB-first base-2^window digits → (..., L) canonical limbs of h^e·R.
+    The launch shape is `montexp.fixed_base_shape`'s for the device."""
     ctx = rns.for_modulus(mod)
     digits = digits.to(device=table.device, dtype=torch.int32)
     bshape = digits.shape[:-1]

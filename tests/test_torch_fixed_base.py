@@ -206,6 +206,9 @@ def test_fixed_base_kernel_equals_plain_version_on_card(cuda_device, keys,
     digits = torch.as_tensor(tfb.draw_exponent_digits(
         tt, 37, np.random.default_rng(2)).astype(np.int32),
         device=cuda_device)
-    assert torch.equal(montexp.rns_fixed_base_tiled(table, digits, ctx,
-                                                    window=4),
-                       montexp.plain_fixed_base(table, digits, ctx))
+    shape = montexp.fixed_base_shape(37, tt.levels, 4, ctx, str(cuda_device))
+    assert torch.equal(montexp.rns_fixed_base_tiled(tt.operand(cuda_device),
+                                                    digits, ctx, window=4,
+                                                    shape=shape),
+                       montexp.plain_fixed_base(table, digits, ctx,
+                                                shape.segments))

@@ -247,9 +247,10 @@ def test_kernels_equal_plain_versions_on_card(cuda_device, key1024):
         dig = torch.as_tensor(RNG.integers(0, 16, size=(2, 32, 19)),
                               dtype=torch.int32, device=dev)
         u = x[:32].contiguous()
+        shape = montexp.matvec_shape(32, 19, 2, 4, tc, chunk=8)
         assert torch.equal(
-            montexp.rns_he_matvec_tiled(u, dig, tc, window=4, chunk=8),
-            montexp.plain_matvec(u, dig, tc, 4, 8))
+            montexp.rns_he_matvec_tiled(u, dig, tc, window=4, shape=shape),
+            montexp.plain_matvec(u, dig, tc, 4, shape.chunk, shape.split))
 
 
 @pytest.mark.gpu
