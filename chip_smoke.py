@@ -6,8 +6,10 @@ Builds the eight CUDA kernels of `src/repro_torch/csrc/` with nvcc and
 holds each against its plain PyTorch version at the training path's
 shapes (exact equality of channel states and limbs; K2, the RNS ladder,
 at every row count its launch shape branches on, on both contexts of a
-1024-bit key, with per-row and shared bits and on extreme states, K1 on
-extreme states too; K6, the CIOS ladder, on the sweep of
+1024-bit key, with per-row and shared bits and on extreme states; K1,
+the RNS product, on the sweep of `repro_torch.bench.round_check`: every
+batch where its launch shape changes, both designs, per-row and shared
+operands, extreme states; K6, the CIOS ladder, on the sweep of
 `repro_torch.bench.ladder_check`: every row count its launch shape
 branches on, W = 8 to 64 words, extreme bases and exponents; K5, the
 CIOS product, and K7, the CIOS windowed matvec, on the sweep of
@@ -20,7 +22,9 @@ matvec, and K4, the fixed-base walk, on the sweeps of
 return from 1 to 2048 rows, windows 1 to 8 (K4 at windows 7 and 8 on
 n² of a 1024-bit key among them), extreme digits, then timed at the
 main path's shapes back to back and in a CUDA graph; K8, the Z_2^64
-matrix product, at four shapes up to 2048³ and on all-ones operands),
+matrix product, at eleven shapes up to 2048³ (K = 1, 2^15, 2^15 + 1 and
+40000, tiles ragged in M and N, all-ones operands), each timed back to
+back and in a CUDA graph, and its SASS must hold IMMA instructions),
 checks 1024-bit Paillier on the card on both arithmetic pipelines,
 then drives Algorithm 1 training at the paper's Table 1 configuration
 (credit-default twin, 2 parties × 12 features, batch 2048, 1024-bit
@@ -35,7 +39,9 @@ keys) through `repro_torch.core.trainer.train_vfl` three ways:
 
 each against the mock backend (losses, weights, per-tag bytes and rounds
 bit for bit), and checks that every kernel of each path launched (K1
-exactly 162 times on the RNS path and 150 on path B).  Then
+exactly 162 times on the RNS path and 150 on path B).  It prints K1's
+launches on the RNS path and path B by (batch, CH, shared operand) and
+times each in a CUDA graph beside an empty kernel.  Then
 a crossover probe times the RNS and CIOS Montgomery products at 256 to
 2048 bits, and the port's crypto kernel benchmark
 (`repro_torch.bench.kernel_bench`, the rows of ``python -m
@@ -47,6 +53,12 @@ CPU-interpret routing figures, which are measured here, not assumed.
 Prints one JSON line of kernel numbers, the card's name and power
 limit, and ends with a JSON line naming the device.  Any failed phase
 exits non-zero.
+
+    python3 chip_smoke.py --paths    # only the three Table 1 paths
+
+runs only the training paths (after one warm-up iteration), counted and
+profiled: the part to copy into another checkout of the port to compare
+the two on one card.
 """
 from __future__ import annotations
 
@@ -88,7 +100,7 @@ KERNELS = {
                     "src/repro/kernels/ring_matmul.py:82"),
 }
 # kernel symbol of each wrapper, for the profiler's tables
-SYMBOLS = {"rns_montmul": "rns_montmul_kernel",
+SYMBOLS = {"rns_montmul": "rns_montmul_",     # both of K1's designs
            "rns_mont_exp": "rns_montexp_kernel",
            "rns_he_matvec": "rns_matvec_kernel",
            "rns_fixed_base": "rns_fixedbase_kernel",
@@ -277,8 +289,13 @@ def phase_rns_kernels(ctx_n2, ctx_p2, results):
         row = (mods - 1) if top else torch.zeros_like(mods)
         return row.to(torch.int32).expand(rows, ctx.CH).contiguous()
 
-    # K1 at (2048, CH of n²); with a shared operand; on extreme states of
-    # both contexts
+    # K1 on the sweep of `repro_torch.bench.round_check`: every batch
+    # where its launch shape changes, per-row and shared y, both designs,
+    # extreme states; then at (2048, CH of n²), timed
+    try:
+        n1 = round_check.sweep_montmul(log)
+    except AssertionError as e:
+        fail(str(e))
     ctx = ctx_n2
     x = _random_states(ctx, 2048, gen, dev)
     y = _random_states(ctx, 2048, gen, dev)
@@ -300,14 +317,19 @@ def phase_rns_kernels(ctx_n2, ctx_p2, results):
     ms = time_ms(lambda: montmul.rns_montmul_tiled(x, y, ctx), 20)
     dev_ms = matvec_check.graph_ms(
         lambda: montmul.rns_montmul_tiled(x, y, ctx), 20)
+    staged = montmul.MontmulShape(16, True)
+    staged_ms = matvec_check.graph_ms(
+        lambda: montmul.rns_montmul_tiled(x, y, ctx, shape=staged), 20)
     plain_ms = time_ms(lambda: montmul.plain(x, y, ctx), 5)
     b, by = bound(3 * 2048 * ctx.CH * 4, 2048, ctx)
+    sh = montmul.montmul_shape(2048, ctx, montexp.sm_count(dev))
     results["rns_montmul"] = dict(max_abs_err=err, ms=ms, graph_ms=dev_ms,
-                                  plain_ms=plain_ms, bound_ms=b, bound_by=by)
-    log(f"[kernels] rns_montmul (2048, {ctx.CH}): equal (and shared, and "
-        f"extreme states at CH {ctx_n2.CH} and {ctx_p2.CH}); {ms:.4f} ms, "
-        f"{dev_ms:.4f} ms in a CUDA graph, plain {plain_ms:.4f} ms, bound "
-        f"{b:.5f} ms ({by})")
+                                  plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                  sweep=n1, staged_graph_ms=staged_ms)
+    log(f"[kernels] rns_montmul (2048, {ctx.CH}) {sh}: equal (and shared, "
+        f"and extreme states at CH {ctx_n2.CH} and {ctx_p2.CH}); {ms:.4f} "
+        f"ms, {dev_ms:.4f} ms in a CUDA graph ({staged}: {staged_ms:.4f}), "
+        f"plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by})")
 
     # K2 at (256, CH of n²) with per-row 1024-bit exponents, timed against
     # the plain ladder
@@ -572,14 +594,42 @@ def phase_cios_kernels(mod_n2, mod_p2, results):
         f"{plain_ms:.1f} ms, bound {bd:.4f} ms ({by})")
 
 
+def imma_count(log) -> int:
+    """Integer tensor-core instructions (IMMA, IGMMA) in the SASS of K8's
+    `ring_matmul_kernel` (cuobjdump of its built library); prints one."""
+    import glob
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    libs = glob.glob(str(build.build_dir() / "libring_matmul-*.so"))
+    if not tool.exists() or not libs:
+        fail(f"ring_matmul: no cuobjdump ({tool}) or no built library")
+    sass = subprocess.run([str(tool), "-sass", max(libs, key=os.path.getmtime)],
+                          capture_output=True, text=True).stdout
+    count, inside, example = 0, False, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "ring_matmul_kernel" in line
+        elif inside and ("IMMA" in line or "IGMMA" in line):
+            count += 1
+            example = example or " ".join(line.split("*/")[1].split())
+    log(f"[kernels] ring_matmul_kernel SASS: {count} IMMA/IGMMA "
+        f"instructions, e.g. {example!r}")
+    return count
+
+
 def phase_ring_matmul(results):
     """K8 against its plain version, max abs err 0 on the uint64 values:
     the benchmark's row, Table 1's X^T·<d> shape, a shape that fills the
-    card, K above the reference's 2^15 chunk, and all-ones operands
-    (every partial sum carries) whose products must equal K."""
+    card, K above the reference's 2^15 chunk, all-ones operands (every
+    partial sum carries) whose products must equal K (one at the s32
+    budget's full chunk of 4096), K = 2^15, 2^15 + 1 and 1, and M and N
+    off the 64-tile; each timed back to back and in a CUDA graph.  Then its SASS must hold tensor-core
+    instructions."""
     import numpy as np
+    from repro_torch.bench import matvec_check
     from repro_torch.crypto import ring
     from repro_torch.kernels import ring_matmul as rm
+    from repro_torch.kernels.montmul import sm_count
     gen = np.random.default_rng(19)
     top = np.uint64((1 << 64) - 1)
     errs = []
@@ -587,7 +637,13 @@ def phase_ring_matmul(results):
                                 ((12, 2048, 1), False),
                                 ((2048, 2048, 2048), False),
                                 ((130, 40000, 10), False),
-                                ((128, 40000, 64), True)):
+                                ((128, 40000, 64), True),
+                                ((768, 8192, 768), True),
+                                ((96, 32768, 24), False),
+                                ((100, 32769, 3), False),
+                                ((200, 1, 70), False),
+                                ((65, 1000, 129), False),
+                                ((1, 5, 1), True)):
         if all_ones:
             A, B = np.full((M, K), top), np.full((K, N), top)
         else:
@@ -608,17 +664,27 @@ def phase_ring_matmul(results):
         errs.append(err)
         big = M * K * N >= 1 << 30
         ms = time_ms(lambda: rm.ring_matmul_tiled(*args), 5 if big else 50)
+        dev_ms = matvec_check.graph_ms(lambda: rm.ring_matmul_tiled(*args),
+                                       5 if big else 20)
         plain_ms = time_ms(lambda: rm.ring_matmul_plain(*args),
                            3 if big else 20)
         bd, by = ring_bound(M, K, N)
-        log(f"[kernels] ring_matmul {label}{M}x{K}x{N}: equal; {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bd:.5f} ms ({by})")
-        entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bd, bound_by=by)
-        results.setdefault("_ring_matmul", {})[
-            f"{label}{M}x{K}x{N}"] = entry
+        sh = rm.ring_matmul_shape(M, K, N, sm_count("cuda"))
+        log(f"[kernels] ring_matmul {label}{M}x{K}x{N} ({sh}): equal; "
+            f"{ms:.4f} ms, {dev_ms:.4f} ms in a CUDA graph, plain "
+            f"{plain_ms:.4f} ms, bound {bd:.5f} ms ({by})")
+        entry = dict(M=M, K=K, N=N, all_ones=all_ones, splits=sh.splits,
+                     ms=ms, graph_ms=dev_ms, plain_ms=plain_ms, bound_ms=bd,
+                     bound_by=by)
+        results.setdefault("ring_matmul", {}).setdefault(
+            "shapes", []).append(entry)
         if (M, K, N) == (2048, 2048, 2048):
-            results["ring_matmul"] = dict(entry)
+            results["ring_matmul"].update(
+                {k: entry[k] for k in ("ms", "graph_ms", "plain_ms",
+                                       "bound_ms", "bound_by")})
     results["ring_matmul"]["max_abs_err"] = max(errs)
+    if imma_count(log) == 0:
+        fail("ring_matmul_kernel: no IMMA or IGMMA instruction in its SASS")
 
 
 def phase_paillier(priv, pipeline: str):
@@ -703,12 +769,24 @@ def counted_run(run):
     torch.cuda.reset_peak_memory_stats()
     for w in ws.values():
         w.launches = 0
+        if hasattr(w, "shapes"):
+            w.shapes.clear()
     t0 = time.perf_counter()
     res = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in ws.items()}
     return res, launches, wall, torch.cuda.max_memory_allocated()
+
+
+def k1_launch_list(label: str) -> dict:
+    """K1's launches of the last counted run by (batch, CH, shared y),
+    printed; {} where this checkout's wrapper does not count them."""
+    shapes = dict(getattr(wrappers()["rns_montmul"], "shapes", {}))
+    log(f"[{label}] K1 launches by (batch, CH, shared y): " + "; ".join(
+        f"({b}, {c}{', shared' if sh else ''}) x{n}"
+        for (b, c, sh), n in sorted(shapes.items(), key=lambda kv: -kv[1])))
+    return shapes
 
 
 def profiled_run(label: str, run) -> dict:
@@ -785,6 +863,7 @@ def phase_train(results, mock):
             exact={"rns_montmul": 54 * ITERS, "rns_he_matvec": 2 * ITERS})
     for k in ("rns_montmul", "rns_mont_exp", "rns_he_matvec"):
         results.setdefault(k, {})["launches"] = launches[k]
+    results["_k1_rns"] = k1_launch_list("train")
     log(f"[train] Table 1 config (n=30000, keys 1024 bits, batch 2048), "
         f"paillier, RNS pipeline, {ITERS} iterations on cuda: {wall:.2f} s "
         f"wall incl. keygen and set-up; {res.runtime_s / ITERS:.3f} "
@@ -886,6 +965,7 @@ def phase_path_b(results, mock):
                        "rns_he_matvec": 2 * ITERS})
         results.setdefault("rns_fixed_base", {})["launches"] = \
             launches["rns_fixed_base"]
+        results["_k1_path_b"] = k1_launch_list("path B")
         log(f"[path B] Table 1, paillier with fixed-base table noise, "
             f"{ITERS} iterations: {res.runtime_s / ITERS:.3f} s/iteration "
             f"(host clock, iterations only), {wall:.2f} s wall; equal to "
@@ -895,6 +975,42 @@ def phase_path_b(results, mock):
     results["_path_b"] = dict(s_per_iter=res.runtime_s / ITERS, wall_s=wall,
                               peak_bytes=peak, table_build_s=build_s,
                               table_load_s=load_s, launches=launches, **prof)
+
+
+def phase_k1_shapes(results):
+    """K1 at every (batch, CH, shared y) it launched at on the RNS path
+    and path B, each in a CUDA graph beside an empty kernel's launch
+    (`round_check.k1_timings`); the profile's K1 time on each path less
+    its launches' bounds."""
+    from repro_torch.bench import round_check
+    rns_, b_ = results["_k1_rns"], results["_k1_path_b"]
+    shapes = sorted(set(rns_) | set(b_), key=lambda k: (-k[0], -k[1], k[2]))
+    t = round_check.k1_timings(log, shapes)
+    ctxs = round_check.k1_contexts()
+    rows = []
+    for key in shapes:
+        batch, ch, shared = key
+        bd, by = bound((2 - shared) * batch * ch * 4 + shared * ch * 4
+                       + batch * ch * 4, batch, ctxs[ch])
+        rows.append(dict(batch=batch, CH=ch, shared_y=shared,
+                         rns_launches=rns_.get(key, 0),
+                         path_b_launches=b_.get(key, 0), graph_ms=t[key],
+                         floor_ms=t["floor"], bound_ms=bd, bound_by=by))
+    results.setdefault("rns_montmul", {})["shapes"] = rows
+    for label, counts, prof in (("RNS path", rns_, "_train"),
+                                ("path B", b_, "_path_b")):
+        bounds = sum(r["bound_ms"] * counts.get(
+            (r["batch"], r["CH"], r["shared_y"]), 0) for r in rows)
+        graph = sum(r["graph_ms"] * counts.get(
+            (r["batch"], r["CH"], r["shared_y"]), 0) for r in rows)
+        dev = results[prof]["device_ms"].get("rns_montmul", 0.0)
+        log(f"[k1] {label}: {sum(counts.values())} launches; profile "
+            f"{dev:.3f} ms, their graph times {graph:.3f} ms, their bounds "
+            f"{bounds:.5f} ms, lost {dev - bounds:.3f} ms per {ITERS} "
+            "iterations")
+    for key in ("_k1_rns", "_k1_path_b"):       # JSON keys: no tuples
+        results[key] = [dict(batch=b, CH=c, shared_y=sh, launches=n)
+                        for (b, c, sh), n in results[key].items()]
 
 
 def phase_probe(results):
@@ -960,7 +1076,15 @@ def phase_bench(results):
                              rows={r["name"]: r["us"] for r in rows})
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paths", action="store_true",
+                    help="only build and run the three Table 1 paths (each "
+                    "against the mock run, counted and profiled): the "
+                    "phase to copy into another checkout of the port to "
+                    "time it beside this one")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -980,6 +1104,21 @@ def main():
         f"{ctx_n2.kB}), L {priv.pub.mod_n2.L}; p² CH={ctx_p2.CH}, L "
         f"{priv.crt_p.mod_p2.L}")
     results = {}
+    if args.paths:
+        from repro_torch.core.trainer import VFLConfig, train_vfl
+        parties, y = table1_parties()
+        mock = train_vfl(parties, y, VFLConfig(he_backend="mock",
+                                               **table1_kw()))
+        # warm-up: the first Paillier run pays one-time set-up (tables to
+        # the card, allocator growth) that the kernel phases pay otherwise
+        train_vfl(parties, y, VFLConfig(he_backend="paillier",
+                                        **{**table1_kw(), "max_iter": 1}))
+        phase_train(results, mock)
+        phase_path_a(results, mock)
+        phase_path_b(results, mock)
+        log(f"[done] paths only, {time.perf_counter() - t_start:.1f} s; "
+            f"card {card}")
+        return
     phase_rns_kernels(ctx_n2, ctx_p2, results)
     phase_cios_kernels(priv.pub.mod_n2, priv.crt_p.mod_p2, results)
     for k2, k6 in zip(results["rns_mont_exp"]["shapes"],
@@ -996,6 +1135,7 @@ def main():
     phase_train(results, mock)
     phase_path_a(results, mock)
     phase_path_b(results, mock)
+    phase_k1_shapes(results)
     phase_probe(results)
     phase_bench(results)
     summary = {k: results.pop(k) for k in list(results) if k[0] == "_"}

@@ -8,10 +8,17 @@ The quick call to make after touching ``csrc/``, before the full
 ``chip_smoke.py``: it builds the kernels, holds K1 and K2 against their
 plain versions at 1, 7, 8, 9, 17, 64 and 2048 rows on the n² and p²
 contexts of a 1024-bit key (K2 on 16-bit per-row exponents), runs the
-sweeps of K3 and K4 below (`sweep_fixed_base`, `sweep_matvec`, which
-``chip_smoke.py`` runs too), then times K2 at the main path's ladders
-(2048, 256 and 12 rows of n² × 1024 shared bits, 12 rows of p² × 512)
-and K3 and K4 at the main path's shapes (`timings`).
+sweeps of K1, K3 and K4 below (`sweep_montmul`, `sweep_fixed_base`,
+`sweep_matvec`, which ``chip_smoke.py`` runs too), then times K2 at the
+main path's ladders (2048, 256 and 12 rows of n² × 1024 shared bits, 12
+rows of p² × 512), K1 at the training paths' shapes and K3 and K4 at the
+main path's shapes (`timings`).
+
+* K1 (`rns_montmul_tiled` against `rns.montmul_channels`) at every batch
+  where `montmul.montmul_shape` changes up to two waves past the register
+  design's last batch, and at 12, 16, 17, 133 and 2048, on the n², p²
+  and p contexts of a 1024-bit key, with per-row and shared y; the
+  staged design forced at 1, 12, 16, 17 and 2048 rows; extreme states.
 
 * K4 (`rns_fixed_base_tiled` against `rns.fixed_base_channels` at the
   shape `montexp.fixed_base_shape` picks for the card) at rows 1, 7, 8,
@@ -41,6 +48,15 @@ against the CUDA source's, `montexp.kernel_smem_bytes`), and the cluster
 slots the card reports are printed beside `montexp.CLUSTER_SLOTS`, the
 H100 SXM's that the picker assumes on the CPU.
 
+``--time-only`` times K1 at the training paths' shapes (`k1_timings`,
+beside an empty kernel), K2 at the main path's ladders (`k2_timings`),
+K3 and K4 (`timings`) and K8 at its five shapes (`k8_timings`), all
+through the public wrappers, so the file runs in a parent checkout too.
+``--k1`` runs K1's sweep, timings and ablation alone; ``--k8`` K8's
+timings and ablation; ``--same-sass CSRC`` only compiles K2's, K3's and
+K4's sources here and in another checkout's csrc/ and compares their
+SASS (exit 1 when any instruction differs).
+
 ``--ablate`` then compiles K2 against copies of ``rns_common.cuh`` that
 each stub one part of the round out (the tensor products, the Barrett
 reductions, step 1, the epilogues, the second extension) and times each
@@ -51,15 +67,20 @@ path's shapes.  Their outputs are wrong by design; the times show where
 the time goes.  It also builds K3's two alternatives (`MATVEC_DESIGNS`:
 the power table in shared memory at chunks of 1, 2 and 4 rows, beside
 the design at the same chunks; Horner once after the cross-chunk fold),
-holds their limbs equal to the design's and times them.  Needs a card
-and nvcc; exits non-zero when a check differs.
+holds their limbs equal to the design's and times them.  It times K1
+with parts of either design stubbed out (`K1_STUBS`: the staged tables,
+the register fragments, step 1, the round or its extensions) and K8
+with parts stubbed out (`K8_STUBS`).  Needs a card and nvcc; exits
+non-zero when a check differs.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -276,6 +297,151 @@ def sweep_matvec(log=print, device="cuda") -> int:
     return held
 
 
+def k1_contexts() -> dict:
+    """The contexts of K1's launches on the training paths, by CH: n²
+    (329), p² and n (166), p and q (85) of a 1024-bit key."""
+    priv = paillier.keygen(1024, seed=1)
+    return {c.CH: c for c in (rns.for_modulus(m) for m in (
+        priv.pub.mod_n2, priv.crt_p.mod_p2, priv.crt_p.mod_p))}
+
+
+def k1_batches(ctx, sms: int) -> list[int]:
+    """Batches where `montmul.montmul_shape` changes, from 1 to two waves
+    past the register design's last batch, each with the next batch;
+    and 12, 16, 17, 133 and 2048."""
+    out, prev = {12, 16, 17, 133, 2048}, None
+    for b in range(1, (montmul.K1_REGS_ROWS + 2) * sms + 1):
+        shape = montmul.montmul_shape(b, ctx, sms)
+        if shape != prev:
+            out |= {b, b + 1}
+        prev = shape
+    return sorted(out)
+
+
+def sweep_montmul(log=print, device="cuda") -> int:
+    """K1 against its plain version at every batch of `k1_batches` on
+    the three contexts of `k1_contexts`, with per-row and shared y; the
+    staged design forced at 1, 12, 16, 17 and 2048 rows; and on extreme
+    states (every residue m − 1, or zero) at 1, 12 and 2048 rows.
+    Returns the number of outputs held; raises AssertionError at the
+    first that differs."""
+    gen = np.random.default_rng(47)
+    sms = montmul.sm_count(device)
+    held = 0
+
+    def hold(label, x, y, ctx, shape=None):
+        got = montmul.rns_montmul_tiled(x, y, ctx, shape=shape)
+        if not torch.equal(got, montmul.plain(x, y, ctx)):
+            raise AssertionError(f"rns_montmul {label}: kernel differs "
+                                 "from the plain version")
+
+    for ctx in k1_contexts().values():
+        mods = torch.as_tensor(ctx.all_mods.astype(np.int64), device=device)
+        for rows in k1_batches(ctx, sms):
+            x = _states(ctx, rows, gen, device)
+            y = _states(ctx, rows, gen, device)
+            shape = montmul.montmul_shape(rows, ctx, sms)
+            hold(f"({rows}, {ctx.CH}) {shape}", x, y, ctx)
+            hold(f"({rows}, {ctx.CH}) {shape} shared y", x,
+                 y[0].contiguous(), ctx)
+            held += 2
+            if rows in (1, 12, 16, 17, 2048):
+                staged = montmul.MontmulShape(
+                    min(rows, montmul.K1_STAGED_ROWS), True)
+                hold(f"({rows}, {ctx.CH}) {staged}", x, y, ctx, staged)
+                held += 1
+            if rows in (1, 12, 2048):
+                top = (mods - 1).to(torch.int32).expand(rows, ctx.CH)
+                top = top.contiguous()
+                zero = torch.zeros_like(top)
+                for a, b, label in ((top, top, "all m-1 x all m-1"),
+                                    (zero, y, "zero x random"),
+                                    (top, y, "all m-1 x random"),
+                                    (x, top[0].contiguous(),
+                                     "random x shared all m-1")):
+                    hold(f"({rows}, {ctx.CH}) {label}", a, b, ctx)
+                    held += 1
+    log(f"[round_check] rns_montmul: {held} products equal to the plain "
+        "version (every batch where montmul_shape changes, CH "
+        f"{', '.join(str(c) for c in k1_contexts())}, per-row and shared "
+        "y; the staged design forced; extreme states)")
+    return held
+
+
+#: K1's launches on the training paths at the paper's Table 1
+#: configuration, (batch, CH, shared y), as `chip_smoke.py` lists them
+#: (RNS path: 84, 30, 18, 12, 12 and 6 launches per 3 iterations): the
+#: shapes `k1_timings` times
+K1_PATH_SHAPES = ((12, 166, True), (12, 85, True), (12, 329, True),
+                  (2048, 329, True), (12, 329, False), (2048, 329, False))
+
+
+def _floor_ms(reps: int):
+    """Graph ms of an empty kernel, or None where this checkout's port
+    has none."""
+    if not hasattr(montmul, "launch_floor"):
+        return None
+    return matvec_check.graph_ms(lambda: montmul.launch_floor("cuda"), reps)
+
+
+def k1_timings(log=print, shapes=K1_PATH_SHAPES, reps: int = 50) -> dict:
+    """K1 at each (batch, CH, shared y) through the public wrapper, in a
+    CUDA graph of `reps` launches: (batch, CH, shared) → graph ms; key
+    "floor": an empty kernel's graph ms (where the checkout has one)."""
+    gen = np.random.default_rng(5)
+    ctxs = k1_contexts()
+    out = {"floor": _floor_ms(reps)}
+    for batch, ch, shared in shapes:
+        ctx = ctxs[ch]
+        x = _states(ctx, batch, gen)
+        y = _states(ctx, 1 if shared else batch, gen)
+        y = y[0].contiguous() if shared else y
+
+        def k1(x=x, y=y, ctx=ctx):
+            return montmul.rns_montmul_tiled(x, y, ctx)
+        out[(batch, ch, shared)] = matvec_check.graph_ms(k1, reps)
+    floor = out["floor"]
+    log(f"[round_check] K1 in a CUDA graph of {reps} launches, ms a launch "
+        f"(empty kernel {'—' if floor is None else f'{floor:.4f}'}): "
+        + "; ".join(f"({b}, {c}{', shared y' if sh else ''}) {ms:.4f}"
+                    for (b, c, sh), ms in
+                    ((k, v) for k, v in out.items() if k != "floor")))
+    return out
+
+
+#: K8's timed shapes (M, K, N, all-ones operands)
+K8_SHAPES = ((128, 256, 64, False), (12, 2048, 1, False),
+             (2048, 2048, 2048, False), (130, 40000, 10, False),
+             (128, 40000, 64, True))
+
+
+def k8_timings(log=print) -> dict:
+    """K8 at `K8_SHAPES` through its public wrapper, back to back and in
+    a CUDA graph: label → (ms, graph ms)."""
+    from repro_torch.crypto import ring
+    from repro_torch.kernels import ring_matmul as rm
+    gen = np.random.default_rng(19)
+    out = {}
+    for M, K, N, ones in K8_SHAPES:
+        if ones:
+            A = np.full((M, K), (1 << 64) - 1, np.uint64)
+            B = np.full((K, N), (1 << 64) - 1, np.uint64)
+        else:
+            A = gen.integers(0, 1 << 64, (M, K), dtype=np.uint64)
+            B = gen.integers(0, 1 << 64, (K, N), dtype=np.uint64)
+        a, b = ring.from_numpy_u64(A, "cuda"), ring.from_numpy_u64(B, "cuda")
+
+        def k8(a=a, b=b):
+            return rm.ring_matmul_tiled(a.hi, a.lo, b.hi, b.lo)
+        reps = 5 if M * K * N >= 1 << 30 else 20
+        label = f"{'all-ones ' if ones else ''}{M}x{K}x{N}"
+        out[label] = (matvec_check.time_ms(k8, reps),
+                      matvec_check.graph_ms(k8, reps))
+        log(f"[round_check] K8 {label}: {out[label][0]:.4f} ms back to "
+            f"back, {out[label][1]:.4f} ms in a graph")
+    return out
+
+
 def timings(log=print) -> dict:
     """K4 and K3 at the main path's shapes through the public calls:
     label → (back-to-back ms, graph ms)."""
@@ -305,6 +471,22 @@ def timings(log=print) -> dict:
     for label, (ms, dev_ms) in out.items():
         log(f"[round_check] {label}: {ms:.4f} ms back to back, "
             f"{dev_ms:.4f} ms in a graph")
+    return out
+
+
+def k2_timings(log=print) -> dict:
+    """K2 at the main path's ladders (`shapes`) through its wrapper, in a
+    CUDA graph of 2 launches: (rows, CH, bits) → ms."""
+    gen = np.random.default_rng(0)
+    ctxs = k1_contexts()
+    out = {}
+    for ctx, u, e in shapes(ctxs[329], ctxs[166], gen):
+        def k2(ctx=ctx, u=u, e=e):
+            return montexp.rns_mont_exp_tiled(u, e, ctx)
+        out[(u.shape[0], ctx.CH, e.numel())] = matvec_check.graph_ms(k2, 2)
+    log("[round_check] K2 in a CUDA graph, ms: " + "; ".join(
+        f"({r}, {c}) x {b} shared bits {ms:.3f}"
+        for (r, c, b), ms in out.items()))
     return out
 
 
@@ -432,29 +614,86 @@ FIXB_STUBS = {
     "no_staging": [("    if (q < pieces) {\n      const uint16_t* src",
                     "    if (false) {\n      const uint16_t* src")],
 }
+# K1's ablations (text in rns_common.cuh or rns_montmul.cu, its stub).
+# The staged design: without copying the tables (the round runs on
+# whatever shared memory holds), without the round (tables, operands in
+# and out only).  The register design: without reading the fragments
+# (constant operands), without the two extensions.  A stub whose text a
+# checkout lacks is skipped, so a parent checkout times its own design.
+K1_STUBS = {
+    "staged_no_tables": [
+        ("  const int n1 = static_cast<int>(table_bytes(d.mt1, d.kt1) / 16);\n"
+         "  const int n2 = static_cast<int>(table_bytes(d.mt2, d.kt2) / 16);",
+         "  const int n1 = 0;\n  const int n2 = 0;")],
+    "staged_no_round": [("  rns::round_tile(X, CH, Y, CH, X, CH, rows, S, d);",
+                         "  if (0) rns::round_tile(X, CH, Y, CH, X, CH, rows,"
+                         " S, d);")],
+    "regs_no_frags": [("      fl[k] = __ldg(lo + k * 32);\n"
+                       "      fh[k] = __ldg(hi + k * 32);",
+                       "      fl[k] = make_uint4(k, 1, 2, 3);\n"
+                       "      fh[k] = make_uint4(3, 2, 1, k);")],
+    "regs_no_step1": [("  for (int c = threadIdx.x; c < CH; c += blockDim.x) {",
+                       "  for (int c = threadIdx.x; c < 0; c += blockDim.x) {")],
+    "regs_no_extensions": [("  if (warp < d.mt1)\n    ext_regs_rows<1>",
+                            "  if (false)\n    ext_regs_rows<1>"),
+                           ("  if (warp < d.mt2)\n    ext_regs_rows<2>",
+                            "  if (false)\n    ext_regs_rows<2>")],
+}
+# K8's ablations (text in ring_matmul.cu, its stub), timed at 2048^3 and
+# 130 x 40000 x 10: the tensor products replaced by integer adds, the
+# fragments' shared-memory reads replaced by constants, the copies, half
+# of the copies (the hi words') and the K step's barrier left out
+K8_STUBS = {
+    "no_mma": [('  asm volatile(\n      "mma.sync',
+                '  c[0] += a[0] ^ b0; c[1] += a[1] ^ b1; c[2] += a[2]; '
+                'c[3] += a[3];\n  if (0) asm volatile(\n      "mma.sync')],
+    "no_lds": [("      const uint4 v = *reinterpret_cast<const uint4*>"
+                "(&st.a[w][idx]);",
+                "      const uint4 v = make_uint4(idx, w, lane, q);"),
+               ("        limbs4(b[0], b[kBS], b[2 * kBS], b[3 * kBS], l);",
+                "        limbs4(col, h, w, t + nt, l);")],
+    "no_copies": [("    if (f < nst)\n      load_stage",
+                   "    if (false)\n      load_stage")],
+    "half_copies": [("  for (int i = 0; i < 2 * kBM * kBK / kThreads; ++i) {",
+                     "  for (int i = 0; i < kBM * kBK / kThreads; ++i) {"),
+                    ("  for (int i = 0; i < 2 * kBK * kBN / kThreads; ++i) {",
+                     "  for (int i = 0; i < kBK * kBN / kThreads; ++i) {")],
+    "no_barrier": [("    __syncthreads();  // for every thread",
+                    "    // for every thread")],
+}
 
 
 def _variants(name: str, header: str, source: str, stubs: dict,
-              entry: str) -> dict:
-    """Builds `source` with `header` (both in csrc/) replaced by stubbed
-    copies, one library per entry of `stubs` (and the unchanged "base");
-    returns each library's `entry`."""
+              entry: str, optional: bool = False) -> dict:
+    """Builds `source` with `header` (both in csrc/; `header` may be None)
+    replaced by stubbed copies, one library per entry of `stubs` (and
+    the unchanged "base");
+    returns each library's `entry`.  A stub whose text the sources lack
+    raises, or with `optional` drops its variant."""
     out = build.build_dir() / "ablate"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for var, subs in {"base": [], **stubs}.items():
-        texts = {header: (build.CSRC / header).read_text(),
-                 source: (build.CSRC / source).read_text()}
+        texts = {f: (build.CSRC / f).read_text()
+                 for f in (header, source) if f}
+        missing = False
         for old, new in subs:
             hit = [f for f, t in texts.items() if old in t]
             if not hit:
+                if optional:
+                    missing = True
+                    break
                 raise RuntimeError(f"ablation {var}: the sources no longer "
                                    "hold the text it stubs")
             texts[hit[0]] = texts[hit[0]].replace(old, new, 1)
+        if missing:
+            continue
         stem = f"{name}_{var}"
-        (out / f"{stem}.cuh").write_text(texts[header])
-        (out / f"{stem}.cu").write_text(texts[source].replace(
-            f'#include "{header}"', f'#include "{stem}.cuh"'))
+        if header:
+            (out / f"{stem}.cuh").write_text(texts[header])
+            texts[source] = texts[source].replace(f'#include "{header}"',
+                                                  f'#include "{stem}.cuh"')
+        (out / f"{stem}.cu").write_text(texts[source])
         procs[var] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
              str(out / f"{stem}.so"), str(out / f"{stem}.cu")],
@@ -574,6 +813,122 @@ def ablate(ctx, gen) -> None:
               "a CUDA graph: " + "; ".join(times), flush=True)
 
 
+def ablate_k1(log=print, shapes=((12, 329, False), (12, 166, True),
+                                  (2048, 329, False)), reps: int = 50):
+    """Times K1 built with each of `K1_STUBS` (those whose text this
+    checkout holds) at `shapes`, in a CUDA graph, in both designs where
+    the checkout's launch takes one; beside an empty kernel."""
+    fns = _variants("k1", "rns_common.cuh", "rns_montmul.cu", K1_STUBS,
+                    "rns_montmul_launch", optional=True)
+    ctxs = k1_contexts()
+    gen = np.random.default_rng(9)
+    takes_shape = len(build._SIGNATURES["rns_montmul_launch"]) > 14
+    floor = _floor_ms(reps)
+    for batch, ch, shared in shapes:
+        ctx = ctxs[ch]
+        x = _states(ctx, batch, gen)
+        y = _states(ctx, 1 if shared else batch, gen)
+        y = y[0].contiguous() if shared else y
+        res = torch.empty_like(x)
+        designs = [None]
+        if takes_shape:
+            rows = montmul.montmul_shape(batch, ctx, montmul.sm_count("cuda"))
+            designs = [montmul.MontmulShape(rows.rows, False),
+                       montmul.MontmulShape(
+                           min(-(-batch // montmul.sm_count("cuda")),
+                               montmul.K1_STAGED_ROWS), True)]
+            if not montmul.regs_fit(ctx):
+                designs = designs[1:]
+        for sh in designs:
+            times = []
+            for name, fn in fns.items():
+                if sh is not None and name.startswith(
+                        "regs" if sh.staged else "staged"):
+                    continue
+
+                def call(fn=fn, sh=sh):
+                    args = [x.data_ptr(), ctx.CH, y.data_ptr(),
+                            0 if shared else ctx.CH, res.data_ptr(), batch]
+                    if sh is not None:
+                        args += [sh.rows, int(sh.staged)]
+                    build.check(fn(*args, *montmul.launch_args(ctx, "cuda"),
+                                   torch.cuda.current_stream().cuda_stream),
+                                name)
+                times.append(f"{name} {matvec_check.graph_ms(call, reps):.4f}")
+            log(f"K1 ({batch}, {ch}{', shared y' if shared else ''}) "
+                f"{sh or 'picked by the kernel'}, ms a launch in a CUDA "
+                f"graph (empty kernel "
+                f"{'—' if floor is None else f'{floor:.4f}'}): "
+                + "; ".join(times))
+
+
+def ablate_k8(log=print, reps: int = 5):
+    """Times K8 built with each of `K8_STUBS` at 2048^3 and 130 x 40000 x
+    10 (outputs wrong by design), in a CUDA graph."""
+    from repro_torch.crypto import ring
+    from repro_torch.kernels import ring_matmul as rm
+    fns = _variants("k8", None, "ring_matmul.cu", K8_STUBS,
+                    "ring_matmul_launch")
+    gen = np.random.default_rng(23)
+    for M, K, N in ((2048, 2048, 2048), (130, 40000, 10)):
+        a = ring.from_numpy_u64(gen.integers(0, 1 << 64, (M, K),
+                                             dtype=np.uint64), "cuda")
+        b = ring.from_numpy_u64(gen.integers(0, 1 << 64, (K, N),
+                                             dtype=np.uint64), "cuda")
+        sh = rm.ring_matmul_shape(M, K, N, montmul.sm_count("cuda"))
+        o_hi = torch.empty((M, N), dtype=torch.int64, device="cuda")
+        o_lo = torch.empty_like(o_hi)
+        scratch = torch.zeros(M * N + M * N // 4096 + 2, dtype=torch.int64,
+                              device="cuda")
+        times = []
+        for name, fn in fns.items():
+            def call(fn=fn):
+                if sh.splits > 1:
+                    scratch.zero_()
+                build.check(fn(a.hi.data_ptr(), a.lo.data_ptr(),
+                               b.hi.data_ptr(), b.lo.data_ptr(),
+                               o_hi.data_ptr(), o_lo.data_ptr(), M, K, N,
+                               sh.chunk, scratch.data_ptr(),
+                               scratch.data_ptr() + 8 * M * N,
+                               torch.cuda.current_stream().cuda_stream),
+                            name)
+            times.append(f"{name} {matvec_check.graph_ms(call, reps):.4f}")
+        log(f"K8 {M}x{K}x{N} ({sh}), ms in a CUDA graph: "
+            + "; ".join(times))
+
+
+def same_sass(other: str, sources=("rns_montexp.cu", "rns_matvec.cu",
+                                   "rns_fixedbase.cu"), log=print) -> bool:
+    """Compiles each of `sources` from this checkout's csrc/ and from the
+    csrc/ directory `other` (another checkout's) to sm_90a and compares
+    their SASS instruction by instruction (cuobjdump, addresses
+    stripped): True when every source gives the same code, so its
+    kernels' times are the other checkout's."""
+    out = build.build_dir() / "sass"
+    out.mkdir(parents=True, exist_ok=True)
+    tool = str(Path(build._nvcc()).with_name("cuobjdump"))
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    same = True
+    for src in sources:
+        code = []
+        for tag, d in (("this", build.CSRC), ("other", Path(other))):
+            cubin = out / f"{tag}_{src}.cubin"
+            subprocess.run([build._nvcc(), *flags, "-cubin", "-o", str(cubin),
+                            str(d / src)], check=True)
+            sass = subprocess.run([tool, "-sass", str(cubin)],
+                                  capture_output=True, text=True).stdout
+            code.append([re.sub(r"/\*[0-9a-f]+\*/|;.*", "", line).strip()
+                         for line in sass.splitlines()
+                         if re.match(r"\s+/\*[0-9a-f]+\*/", line)])
+        diff = sum(a != b for a, b in zip(*code)) + abs(len(code[0])
+                                                        - len(code[1]))
+        log(f"[round_check] {src}: {len(code[0])} instructions here, "
+            f"{len(code[1])} in {other}; {diff} differ")
+        same &= diff == 0
+    return same
+
+
 def cluster_slots(ctx) -> list[int]:
     """K4's clusters of 1 … 8 blocks that the card holds at once, at the
     shared memory of 16 rows a block (`montexp.CLUSTER_SLOTS` is an H100
@@ -588,7 +943,15 @@ def main(argv=None) -> int:
     ap.add_argument("--ablate", action="store_true",
                     help="also time K2, K3 and K4 with parts stubbed out")
     ap.add_argument("--time-only", action="store_true",
-                    help="only time K3 and K4 through the public calls")
+                    help="only time K1, K3, K4 and K8 through the public "
+                    "calls")
+    ap.add_argument("--k1", action="store_true",
+                    help="only K1: its sweep, timings and ablation")
+    ap.add_argument("--k8", action="store_true",
+                    help="only K8: its timings and ablation")
+    ap.add_argument("--same-sass", metavar="CSRC",
+                    help="only compare the SASS of K2, K3 and K4 with that "
+                    "of another checkout's csrc/ directory")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("round_check: needs a CUDA card", file=sys.stderr)
@@ -599,8 +962,24 @@ def main(argv=None) -> int:
     print(smi.stdout.strip() or torch.cuda.get_device_name(0), flush=True)
     built = build.load()
     print(f"built in {built.seconds:.2f} s", flush=True)
+    say = lambda t: print(t, flush=True)  # noqa: E731
+    if args.same_sass:
+        return 0 if same_sass(args.same_sass, log=say) else 1
     if args.time_only:
-        timings(lambda t: print(t, flush=True))
+        k1_timings(say)
+        k2_timings(say)
+        timings(say)
+        k8_timings(say)
+        return 0
+    if args.k8:
+        k8_timings(say)
+        ablate_k8(say)
+        return 0
+    if args.k1:
+        if hasattr(montmul, "montmul_shape"):
+            sweep_montmul(say)
+        k1_timings(say)
+        ablate_k1(say)
         return 0
     gen = np.random.default_rng(0)
     priv = paillier.keygen(1024, seed=1)
@@ -612,8 +991,9 @@ def main(argv=None) -> int:
           f"(montexp.CLUSTER_SLOTS {list(montexp.CLUSTER_SLOTS)})",
           flush=True)
     try:
-        sweep_fixed_base(lambda t: print(t, flush=True))
-        sweep_matvec(lambda t: print(t, flush=True))
+        sweep_montmul(say)
+        sweep_fixed_base(say)
+        sweep_matvec(say)
     except AssertionError as e:
         print(e, flush=True)
         ok = False
@@ -621,9 +1001,12 @@ def main(argv=None) -> int:
         ms = _ms(lambda: montexp.rns_mont_exp_tiled(u, e, ctx))
         print(f"K2 ({u.shape[0]}, {ctx.CH}) x {e.numel()} shared bits: "
               f"{ms:.3f} ms", flush=True)
-    timings(lambda t: print(t, flush=True))
+    k1_timings(say)
+    timings(say)
     if args.ablate:
         ablate(ctx_n2, gen)
+        ablate_k1(say)
+        ablate_k8(say)
     print("round_check: all equal" if ok else "round_check: FAILED")
     return 0 if ok else 1
 

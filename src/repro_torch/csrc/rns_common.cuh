@@ -508,4 +508,162 @@ inline int pick_rows(const Dims& d, int batch, int cap, F bytes) {
   return bytes(rows) > static_cast<size_t>(limit) ? 0 : rows;
 }
 
+// ---------------------------------------------------------------------------
+// The round's pieces for a kernel that holds the tables' fragments in
+// registers (K1, rns_montmul.cu): its scratch alone, its constants from
+// any memory, step 1 on residues of any type in any memory, and the two
+// extensions' epilogues on half products computed elsewhere.  They repeat
+// carve, consts, round_core's step 1 and the ext*_task epilogues above,
+// which K2-K4 keep as they are: sharing one copy changed K2-K4's
+// generated code and made K2 about 2% slower at 2048 rows (PERF.md).
+// ---------------------------------------------------------------------------
+
+// Bytes of the round's scratch for `rows` rows (s, the xi planes, t_r).
+__host__ __device__ inline size_t scratch_bytes(const Dims& d, int rows) {
+  const int r = pad_rows(rows);
+  return align16(sizeof(uint16_t) * r * (d.kA + 1)) +
+         align16(static_cast<size_t>(2) * r * plane_stride(d.kt1)) +
+         align16(static_cast<size_t>(2) * r * plane_stride(d.kt2)) +
+         align16(sizeof(uint16_t) * r);
+}
+
+// Carves the round's scratch (s, xi planes, t_r) from `base`; returns the
+// first byte after it.  Leaves the table and constant pointers alone.
+__device__ inline unsigned char* carve_scratch(unsigned char* base,
+                                               const Dims& d, int rows,
+                                               Smem& S) {
+  const int r = pad_rows(rows);
+  unsigned char* p = base;
+  S.s = reinterpret_cast<uint16_t*>(p);
+  p += align16(sizeof(uint16_t) * r * (d.kA + 1));
+  S.x1 = reinterpret_cast<uint8_t*>(p);
+  p += align16(static_cast<size_t>(2) * r * plane_stride(d.kt1));
+  S.x2 = reinterpret_cast<uint8_t*>(p);
+  p += align16(static_cast<size_t>(2) * r * plane_stride(d.kt2));
+  S.tr = reinterpret_cast<uint16_t*>(p);
+  p += align16(sizeof(uint16_t) * r);
+  return p;
+}
+
+// The rows of an (8, CH) constant table at `c` (shared or global memory).
+__device__ __forceinline__ Consts consts_at(const uint32_t* c, int CH) {
+  return Consts{c, c + CH, c + 2 * CH, c + 3 * CH, c + 4 * CH, c + 5 * CH,
+                c + 6 * CH};
+}
+
+// Step 1 of the round for `rows` rows of x and y (residues of type T, in
+// shared or global memory; a stride of 0 broadcasts one state): s = x*y,
+// then xi = s*(-N^-1)*(B/b_i)^-1 on base B into the first extension's
+// planes and s*B^-1 on A and m_r into S.s, four rows at a time
+// (independent chains).  Every thread of the block takes channels.
+template <typename T>
+__device__ __forceinline__ void round_step1(const T* x, int xs, const T* y,
+                                            int ys, int rows, const Smem& S,
+                                            const Dims& d, const Consts& K) {
+  const int kA = d.kA, kB = d.kB, CH = d.CH, sA = d.kA + 1;
+  const int ks1 = plane_stride(d.kt1);
+  for (int c = threadIdx.x; c < CH; c += blockDim.x) {
+    const uint32_t m = K.mods[c], u = K.mu[c];
+    const bool on_b = c >= kA && c < kA + kB;
+    const int i = c - kA, o = c < kA ? c : kA;
+    const uint32_t f = on_b ? K.xi[i] : K.binv[o];
+    for (int r0 = 0; r0 < rows; r0 += 4) {
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = min(r0 + j, rows - 1);
+        w[j] = barrett(static_cast<uint32_t>(x[r * xs + c]) *
+                           static_cast<uint32_t>(y[r * ys + c]),
+                       m, u);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = r0 + j;
+        const uint32_t z = barrett(w[j] * f, m, u);
+        if (r >= rows) continue;
+        if (on_b) {
+          S.x1[2 * r * ks1 + i] = static_cast<uint8_t>(z & 255u);
+          S.x1[(2 * r + 1) * ks1 + i] = static_cast<uint8_t>(z >> 8);
+        } else {
+          S.s[r * sA + o] = static_cast<uint16_t>(z);
+        }
+      }
+    }
+  }
+}
+
+// The first extension's epilogue for m-tile mt and n-tiles nt0 .. nt0 +
+// NT - 1 from their half products `acc` (ext_tiles): t = s*B^-1 +
+// qhat*(N*B^-1) on [A | m_r], stored to out, and xi2 = t*(A/a_j)^-1 into
+// the second extension's plane.
+template <int NT, typename Store>
+__device__ __forceinline__ void ext1_epilogue(const int (&acc)[NT][2][4],
+                                              const Smem& S, const Dims& d,
+                                              const Consts& K, int rows,
+                                              int mt, int nt0, int lane,
+                                              Store& store) {
+  const int kA = d.kA, CH = d.CH, sA = d.kA + 1;
+  const int ks2 = plane_stride(d.kt2);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int o = mt * kTileM + g + 8 * j;  // index in [A | m_r]
+      const int r = (nt0 + n) * kTileR + t;
+      if (r >= rows || o > kA) continue;
+      const int c = o < kA ? o : CH - 1;
+      const uint32_t m = K.mods[c], u = K.mu[c];
+      const uint32_t qh = combine(acc[n], j, m, u);
+      const uint32_t tt = barrett(S.s[r * sA + o] + qh * K.nbinv[o], m, u);
+      store(r, c, tt);
+      if (o < kA) {
+        const uint32_t xi2 = barrett(tt * K.xi2[o], m, u);
+        S.x2[2 * r * ks2 + o] = static_cast<uint8_t>(xi2 & 255u);
+        S.x2[(2 * r + 1) * ks2 + o] = static_cast<uint8_t>(xi2 >> 8);
+      } else {
+        S.tr[r] = static_cast<uint16_t>(tt);
+      }
+    }
+}
+
+// The second extension's epilogue for m-tile mt (15 base-B channels and
+// m_r) and n-tiles nt0 .. nt0 + NT - 1 from their half products `acc`:
+// Shenoy-Kumaresan, t_B = sig - alpha*A, taken as
+// (v + m*2^13 - alpha*(A mod b_i)) mod m from the unreduced sum v:
+// alpha < m_r < 2^13, so the operand is >= 0 and below 2^31 + 2^26.
+template <int NT, typename Store>
+__device__ __forceinline__ void ext2_epilogue(const int (&acc)[NT][2][4],
+                                              const Smem& S, const Dims& d,
+                                              const Consts& K, int rows,
+                                              int mt, int nt0, int lane,
+                                              Store& store) {
+  const int kA = d.kA, kB = d.kB, CH = d.CH;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t mr = K.mods[CH - 1], mur = K.mu[CH - 1];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int r = (nt0 + n) * kTileR + t;  // < pad_rows(rows)
+    uint32_t v[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int l = g + 8 * j, i = mt * kExt2M + l;
+      const int c = (l < kExt2M && i < kB) ? kA + i : CH - 1;
+      v[j] = partial(acc[n], j, K.mods[c], K.mu[c]);
+    }
+    // local row 15 (lanes 28-31, output j = 1) is m_r for this lane's row
+    const uint32_t sr = __shfl_sync(0xffffffffu, barrett(v[1], mr, mur),
+                                    28 + t);
+    const uint32_t alpha = barrett((sr + mr - S.tr[r]) * d.ainv_r, mr, mur);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int l = g + 8 * j, i = mt * kExt2M + l;
+      if (r >= rows || l >= kExt2M || i >= kB) continue;
+      const uint32_t m = K.mods[kA + i], u = K.mu[kA + i];
+      store(r, kA + i, barrett(v[j] + (m << 13) - alpha * K.amod[i], m, u));
+    }
+  }
+}
+
+
 }  // namespace rns

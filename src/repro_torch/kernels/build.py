@@ -30,8 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_uint)
 _SIGNATURES = {
-    "rns_montmul_launch": [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _U,
-                           _P, _P, _P, _P],
+    "rns_montmul_launch": [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _I,
+                           _U, _P, _P, _P, _P],
+    "rns_montmul_smem_bytes": [_I, _I, _I, _I, _I],
+    "launch_floor": [_P],
     "rns_montexp_launch": [_P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _U,
                            _P, _P, _P, _P],
     "rns_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
@@ -46,7 +48,8 @@ _SIGNATURES = {
     "cios_matvec_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _U,
                            _P],
     "cios_matvec_rows_fit": [_I, _I, _I],
-    "ring_matmul_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ring_matmul_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                           _P],
 }
 
 

@@ -41,7 +41,10 @@ from repro_torch.crypto import bigint, rns
 from repro_torch.crypto.bigint import Modulus
 from repro_torch.crypto.rns import RNSContext
 from repro_torch.kernels import build
-from repro_torch.kernels.montmul import check_limbs, check_states, launch_args
+from repro_torch.kernels.montmul import (H100_SMS, SMEM_LIMIT, _a16,
+                                         check_limbs, check_states,
+                                         launch_args, round_smem_bytes,
+                                         sm_count)
 
 plain_ladder = rns.mont_exp_channels
 plain_matvec = rns.he_matvec_channels
@@ -63,11 +66,6 @@ def cios_matvec_partials(cts: torch.Tensor, digits: torch.Tensor,
     return bigint.he_matvec_windowed(cts.reshape(nch, chunk, L), dg, mod,
                                      window)
 
-#: SMs of an H100 SXM: the pickers' default, so CPU runs fold in the
-#: card's order
-H100_SMS = 132
-#: dynamic shared memory one block may opt in to on sm_90 (227 KB)
-SMEM_LIMIT = 232448
 #: blocks a cluster at most (the portable limit)
 CLUSTER_MAX = 8
 #: clusters of 1 … 8 blocks of K4 that an H100 SXM holds at once, one
@@ -86,27 +84,11 @@ MATVEC_CHUNK_MAX = 16
 ROUND_US, ROUND_US_ROW = 2.4, 0.265
 
 
-def _a16(b: int) -> int:
-    return (b + 15) // 16 * 16
-
-
 def padded_channels(CH: int) -> int:
     """CH rounded up to 8: the row stride, in uint16, of K3's and K4's
     state tiles and of K4's table operand (16-byte rows for cp.async;
     `rns::padded` of `csrc/rns_cluster.cuh`)."""
     return (CH + 7) // 8 * 8
-
-
-def round_smem_bytes(ctx: RNSContext, rows: int) -> int:
-    """Shared memory of the RNS round's tables and its scratch for `rows`
-    rows (`rns::round_bytes` of `csrc/rns_common.cuh`)."""
-    r = (rows + 7) // 8 * 8
-    mt1, kt1 = -(-(ctx.kA + 1) // 16), -(-ctx.kB // 32)
-    mt2, kt2 = -(-ctx.kB // 15), -(-ctx.kA // 32)
-    return (2 * mt1 * kt1 * 32 * 16 + 2 * mt2 * kt2 * 32 * 16
-            + _a16(4 * 8 * ctx.CH) + _a16(2 * r * (ctx.kA + 1))
-            + _a16(2 * r * (kt1 * 32 + 16)) + _a16(2 * r * (kt2 * 32 + 16))
-            + _a16(2 * r))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,14 +248,6 @@ def rns_mont_exp_tiled(u: torch.Tensor, bits: torch.Tensor,
     build.check(err, "rns_mont_exp")
     rns_mont_exp_tiled.launches += 1
     return out
-
-
-def sm_count(device) -> int:
-    """SMs of `device` (a CUDA device), or `H100_SMS` for the CPU."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return H100_SMS
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def rns_he_matvec_tiled(u: torch.Tensor, digits: torch.Tensor,

@@ -2,7 +2,11 @@
 
 * K1 `rns_montmul_tiled` (`csrc/rns_montmul.cu`), port of the Pallas
   kernel `repro/kernels/montmul.py::rns_montmul_tiled`: one RNS round on
-  channel states; plain version `crypto.rns.montmul_channels`.
+  channel states; plain version `crypto.rns.montmul_channels`.  Its
+  launch shape (`montmul_shape`: rows a block, and whether the round's
+  tables are staged in shared memory or read into registers) depends on
+  the batch and the context; a round's rows are independent, so the
+  output does not.
 * K5 `montmul_tiled` (`csrc/cios_montmul.cu`), port of
   `repro/kernels/montmul.py::montmul_tiled`: the CIOS product a·b·R⁻¹ on
   radix-2^12 limbs below R, computed as two products on 32-bit words
@@ -17,6 +21,10 @@ choose by the tensors' device.  `.launches` counts kernel launches.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
+import functools
+
 import torch
 
 from repro_torch.crypto import bigint, rns
@@ -26,6 +34,104 @@ from repro_torch.kernels import build
 
 plain = rns.montmul_channels
 plain_cios = bigint.mont_mul
+
+#: SMs of an H100 SXM: the pickers' default, so CPU runs pick the card's
+#: shapes
+H100_SMS = 132
+#: dynamic shared memory one block may opt in to on sm_90 (227 KB)
+SMEM_LIMIT = 232448
+#: K1's register design (`csrc/rns_montmul.cu`): its warps, the k-tiles
+#: of an extension it holds, the rows a block (one warp task of four
+#: n-tiles of 4 rows); the staged design's rows a block at most
+K1_WARPS, K1_KT_MAX, K1_REGS_ROWS, K1_STAGED_ROWS = 11, 6, 16, 32
+#: rows an n-tile of the round's mma (a block of up to this many rows
+#: costs one n-tile's latency)
+K1_TILE_ROWS = 4
+
+
+def _a16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+def sm_count(device) -> int:
+    """SMs of `device` (a CUDA device), or `H100_SMS` for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tiles(ctx: RNSContext) -> tuple[int, int, int, int]:
+    """(mt1, kt1, mt2, kt2): the round's m- and k-tiles of both
+    extensions (`rns::dims`)."""
+    return (-(-(ctx.kA + 1) // 16), -(-ctx.kB // 32), -(-ctx.kB // 15),
+            -(-ctx.kA // 32))
+
+
+def scratch_smem_bytes(ctx: RNSContext, rows: int) -> int:
+    """Shared memory of the RNS round's scratch for `rows` rows
+    (`rns::scratch_bytes` of `csrc/rns_common.cuh`)."""
+    r = (rows + 7) // 8 * 8
+    _, kt1, _, kt2 = _tiles(ctx)
+    return (_a16(2 * r * (ctx.kA + 1)) + _a16(2 * r * (kt1 * 32 + 16))
+            + _a16(2 * r * (kt2 * 32 + 16)) + _a16(2 * r))
+
+
+def round_smem_bytes(ctx: RNSContext, rows: int) -> int:
+    """Shared memory of the RNS round's tables and its scratch for `rows`
+    rows (`rns::round_bytes` of `csrc/rns_common.cuh`)."""
+    mt1, kt1, mt2, kt2 = _tiles(ctx)
+    return (2 * mt1 * kt1 * 32 * 16 + 2 * mt2 * kt2 * 32 * 16
+            + _a16(4 * 8 * ctx.CH) + scratch_smem_bytes(ctx, rows))
+
+
+@dataclasses.dataclass(frozen=True)
+class MontmulShape:
+    """K1's launch shape: `rows` batch rows a block; `staged`: the
+    round's tables copied into each block's shared memory, else each
+    warp's table fragments read into its registers."""
+    rows: int
+    staged: bool
+
+
+def montmul_smem_bytes(ctx: RNSContext, shape: MontmulShape) -> int:
+    """K1's dynamic shared memory (`montmul_bytes` and `regs_bytes` of
+    `csrc/rns_montmul.cu`): staged, the round and the two operand tiles;
+    in registers, the channel constants and the round's scratch."""
+    if not shape.staged:
+        return _a16(4 * 8 * ctx.CH) + scratch_smem_bytes(ctx, shape.rows)
+    return (round_smem_bytes(ctx, shape.rows)
+            + 2 * _a16(2 * ((shape.rows + 7) // 8 * 8) * ctx.CH))
+
+
+def regs_fit(ctx: RNSContext) -> bool:
+    """True when K1's register design takes this context: each m-tile of
+    both extensions on its own warp, at most `K1_KT_MAX` k-tiles (every
+    modulus up to 2048 bits)."""
+    mt1, kt1, mt2, kt2 = _tiles(ctx)
+    return max(mt1, mt2) <= K1_WARPS and max(kt1, kt2) <= K1_KT_MAX
+
+
+@functools.lru_cache(maxsize=1024)
+def montmul_shape(batch: int, ctx: RNSContext,
+                  sms: int = H100_SMS) -> MontmulShape:
+    """K1's launch shape for `batch` rows (the CPU stands for an H100
+    SXM's `sms`).  Up to `K1_REGS_ROWS` rows an SM, on a context that
+    `regs_fit` takes: the register design, ⌈batch / sms⌉ rows a block
+    but at least `K1_TILE_ROWS` (a block of up to 4 rows costs one
+    n-tile's latency, so fewer blocks read the tables) and at most
+    `K1_REGS_ROWS`.  Otherwise the staged design at about one block an
+    SM: ⌈batch / sms⌉ rows, at most `K1_STAGED_ROWS`, fewer while its
+    shared memory does not fit."""
+    rows = max(1, -(-batch // sms))
+    if batch <= K1_REGS_ROWS * sms and regs_fit(ctx):
+        return MontmulShape(
+            min(K1_REGS_ROWS, max(rows, min(batch, K1_TILE_ROWS))), False)
+    rows = min(rows, K1_STAGED_ROWS)
+    while rows > 1 and montmul_smem_bytes(
+            ctx, MontmulShape(rows, True)) > SMEM_LIMIT:
+        rows -= 1
+    return MontmulShape(rows, True)
 
 
 def check_states(t: torch.Tensor, ctx: RNSContext, name: str,
@@ -51,10 +157,12 @@ def launch_args(ctx: RNSContext, device):
             d["tb_mma"].data_ptr(), d["ta_mma"].data_ptr())
 
 
-def rns_montmul_tiled(x: torch.Tensor, y: torch.Tensor,
-                      ctx: RNSContext) -> torch.Tensor:
+def rns_montmul_tiled(x: torch.Tensor, y: torch.Tensor, ctx: RNSContext,
+                      shape: MontmulShape | None = None) -> torch.Tensor:
     """x (batch, CH), y (batch, CH) or one shared (CH,) state, int32 →
-    the states of x·y·B⁻¹ (batch, CH) int32."""
+    the states of x·y·B⁻¹ (batch, CH) int32.  `shape` defaults to
+    `montmul_shape` for this device.  Each launch also counts its
+    (batch, CH, shared y) in `.shapes`."""
     if x.device.type == "cpu" and y.device.type == "cpu":
         return plain(x, y, ctx)
     check_states(x, ctx, "rns_montmul x")
@@ -64,18 +172,29 @@ def rns_montmul_tiled(x: torch.Tensor, y: torch.Tensor,
     batch = x.shape[0]
     if y.dim() == 2 and y.shape[0] != batch:
         raise ValueError("rns_montmul: y has another batch than x")
+    if shape is None:
+        shape = montmul_shape(batch, ctx, sm_count(x.device))
     out = torch.empty_like(x)
     fn = build.load().fn("rns_montmul_launch")
     err = fn(x.data_ptr(), ctx.CH, y.data_ptr(),
              ctx.CH if y.dim() == 2 else 0, out.data_ptr(), batch,
-             *launch_args(ctx, x.device),
+             shape.rows, int(shape.staged), *launch_args(ctx, x.device),
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "rns_montmul")
     rns_montmul_tiled.launches += 1
+    rns_montmul_tiled.shapes[(batch, ctx.CH, y.dim() == 1)] += 1
     return out
 
 
 rns_montmul_tiled.launches = 0
+rns_montmul_tiled.shapes = collections.Counter()
+
+
+def launch_floor(device) -> None:
+    """One launch of an empty kernel on `device`'s current stream: the
+    floor a launch cannot go under (timed beside K1)."""
+    build.check(build.load().fn("launch_floor")(
+        torch.cuda.current_stream(device).cuda_stream), "launch_floor")
 
 
 def check_limbs(t: torch.Tensor, L: int, name: str,

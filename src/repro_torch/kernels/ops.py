@@ -201,8 +201,9 @@ def rns_fixed_base(table: torch.Tensor, digits: torch.Tensor, mod: Modulus,
 def ring_matmul(a: R64, b: R64) -> R64:
     """(M, K) @ (K, N) over Z_2^64 on R64 shares, any M, K, N ≥ 1.  CPU
     tensors take the plain version, CUDA tensors the kernel (K8), in one
-    launch whatever K: its 64-bit sums wrap exactly, so nothing pads M or
-    N and nothing chunks K.  Operands on different devices raise."""
+    launch whatever K: the kernel masks the ragged edges and splits K
+    over its blocks itself, so nothing pads M or N and nothing chunks K
+    here.  Operands on different devices raise."""
     hi, lo = ringmm_k.ring_matmul_tiled(a.hi.contiguous(), a.lo.contiguous(),
                                         b.hi.contiguous(), b.lo.contiguous())
     return R64(hi, lo)

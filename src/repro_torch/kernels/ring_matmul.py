@@ -3,7 +3,11 @@
 `ring_matmul_tiled` (`csrc/ring_matmul.cu`), port of the Pallas kernel
 `repro/kernels/ring_matmul.py::ring_matmul_tiled`: (M, K) × (K, N) over
 Z_2^64 on the port's R64 words (int64 tensors holding 32-bit words);
-plain version `ring_matmul_plain`.
+plain version `ring_matmul_plain`.  The kernel runs the TPU design's 36
+8-bit limb products on the int8 tensor cores, 64 × 64 outputs a block,
+with K split over blocks (`ring_matmul_shape`) so that skinny products
+fill the card and no block's s32 sums outgrow their budget
+(`MAX_CHUNK`); the splits' partials add mod 2^64.
 
 The wrapper launches the CUDA kernel for CUDA tensors and raises on
 anything the kernel does not take; for CPU tensors it runs the plain
@@ -12,15 +16,52 @@ launches.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from repro_torch.crypto import ring
 from repro_torch.crypto.ring import M16, M32, R64
 from repro_torch.kernels import build
+from repro_torch.kernels.montmul import H100_SMS, sm_count
 
 #: K of one float64 product in the plain version: a sum of 2^21 products
 #: of 16-bit limbs, each below 2^32, stays below 2^53
 PLAIN_MAX_K = 1 << 21
+
+#: the kernel's output tile (rows, columns) and K step (`csrc/ring_matmul.cu`)
+TILE_M, TILE_N, TILE_K = 64, 64, 32
+#: 8-bit limbs of a 64-bit ring element
+LIMBS = 8
+#: K terms a block takes at most: weight 7's accumulator sums 8 limb
+#: products of up to 255² each, 8 · 4096 · 255² < 2^31
+MAX_CHUNK = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class RingShape:
+    """K8's launch shape: `chunk` K terms a block (a multiple of
+    `TILE_K`, at most `MAX_CHUNK`), so `splits` = ⌈K / chunk⌉ blocks an
+    output tile."""
+    chunk: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=1024)
+def ring_matmul_shape(M: int, K: int, N: int,
+                      sms: int = H100_SMS) -> RingShape:
+    """K8's launch shape for an (M, K) × (K, N) product on a card of
+    `sms` SMs (the CPU stands for an H100 SXM): K is split so that the
+    grid of 64 × 64 output tiles times splits has about one block an SM
+    (⌊sms / tiles⌋ splits, none when the tiles alone fill the card), no
+    more splits than K steps of 32, and at least ⌈K / MAX_CHUNK⌉ (the s32
+    budget); the K steps are dealt out evenly."""
+    tiles = -(-M // TILE_M) * -(-N // TILE_N)
+    steps = -(-K // TILE_K)
+    splits = min(steps, max(sms // tiles, -(-K // MAX_CHUNK), 1))
+    chunk = -(-steps // splits) * TILE_K
+    return RingShape(chunk, -(-K // chunk))
 
 _NAMES = ("a_hi", "a_lo", "b_hi", "b_lo")
 
@@ -102,11 +143,20 @@ def ring_matmul_tiled(a_hi: torch.Tensor, a_lo: torch.Tensor,
     if len({t.device for t in ts}) != 1:
         raise ValueError("ring_matmul: operands on different devices")
     (M, K), N = a_hi.shape, b_hi.shape[1]
+    shape = ring_matmul_shape(M, K, N, sm_count(a_hi.device))
     o_hi = torch.empty((M, N), dtype=torch.int64, device=a_hi.device)
     o_lo = torch.empty_like(o_hi)
+    ws = ticket = None
+    if shape.splits > 1:
+        # the splits' u64 sums, then an int32 ticket per output tile
+        tiles = -(-M // TILE_M) * -(-N // TILE_N)
+        scratch = torch.zeros(M * N + (tiles + 1) // 2, dtype=torch.int64,
+                              device=a_hi.device)
+        ws, ticket = scratch.data_ptr(), scratch.data_ptr() + 8 * M * N
     fn = build.load().fn("ring_matmul_launch")
     err = fn(*(t.data_ptr() for t in ts), o_hi.data_ptr(), o_lo.data_ptr(),
-             M, K, N, torch.cuda.current_stream(a_hi.device).cuda_stream)
+             M, K, N, shape.chunk, ws, ticket,
+             torch.cuda.current_stream(a_hi.device).cuda_stream)
     build.check(err, "ring_matmul")
     ring_matmul_tiled.launches += 1
     return o_hi, o_lo

@@ -128,3 +128,131 @@ def test_ring_matmul_kernel_equals_plain_version_on_card(cuda_device):
             assert torch.equal(got, want)
     A, B = np.full((64, 40000), TOP), np.full((40000, 32), TOP)
     assert (port(A, B, cuda_device) == 40000).all()
+
+
+# ---------------------------------------------------------------------------
+# K8's design: u8 limbs on the int8 tensor cores, split-K
+# ---------------------------------------------------------------------------
+
+#: the shapes `chip_smoke.py` runs K8 at
+SMOKE_SHAPES = ((128, 256, 64), (12, 2048, 1), (2048, 2048, 2048),
+                (130, 40000, 10), (128, 40000, 64), (768, 8192, 768),
+                (96, 32768, 24), (100, 32769, 3), (200, 1, 70),
+                (65, 1000, 129), (1, 5, 1))
+
+
+def limb_schedule(A, B, shape):
+    """numpy model of K8's arithmetic at launch shape `shape`: eight u8
+    limbs an element, the products of one weight w = i + j summed in one
+    s32 accumulator over a block's K chunk, drained at the chunk's end as
+    Σ_w acc_w·2^(8w) mod 2^64, the splits' partials added mod 2^64.
+    Returns (C, the largest accumulator); asserts every accumulator stays
+    inside the s32 budget."""
+    M, K = A.shape
+    al = [((A >> np.uint64(8 * i)) & np.uint64(255)).astype(np.int64)
+          for i in range(trm.LIMBS)]
+    bl = [((B >> np.uint64(8 * i)) & np.uint64(255)).astype(np.int64)
+          for i in range(trm.LIMBS)]
+    assert shape.chunk % trm.TILE_K == 0 and shape.chunk <= trm.MAX_CHUNK
+    assert shape.splits == -(-K // shape.chunk)
+    out = np.zeros((M, B.shape[1]), np.uint64)
+    top = 0
+    for z in range(shape.splits):
+        k0, k1 = z * shape.chunk, min(K, (z + 1) * shape.chunk)
+        part = np.zeros_like(out)
+        for w in range(trm.LIMBS):          # weight 2^(8w); w ≥ 8 vanishes
+            acc = sum(al[i][:, k0:k1] @ bl[w - i][k0:k1]
+                      for i in range(w + 1))
+            assert 0 <= acc.min() and acc.max() < 1 << 31, (w, z)
+            top = max(top, int(acc.max()))
+            part += acc.astype(np.uint64) << np.uint64(8 * w)
+        out += part
+    return out, top
+
+
+@pytest.mark.parametrize("K", [1, 1 << 15, (1 << 15) + 1, 40000])
+def test_limb_schedule_at_all_ones(K):
+    """All-0xFF operands, the limbs' largest sums, at K = 1, 2^15, 2^15 + 1
+    and 40000 and the picker's split at 132 SMs: the model equals the
+    reference's Pallas kernel (interpret mode) and `ring_matmul_ref`."""
+    A, B = np.full((3, K), TOP), np.full((K, 2), TOP)
+    shape = trm.ring_matmul_shape(3, K, 2, 132)
+    got, _ = limb_schedule(A, B, shape)
+    np.testing.assert_array_equal(got, np.full((3, 2), K, np.uint64))
+    want = jring.to_numpy_u64(jops.ring_matmul(
+        jring.from_numpy_u64(A), jring.from_numpy_u64(B), tm=8, tn=8,
+        interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, reference(A, B))
+
+
+def test_limb_schedule_budget_is_tight():
+    """A full chunk of all-0xFF limbs fills weight 7's accumulator to
+    8 · 4096 · 255² = 2,130,739,200, just below 2^31; the budget the
+    source states, k ≤ 4128 terms, is the largest that fits."""
+    A, B = np.full((1, trm.MAX_CHUNK), TOP), np.full((trm.MAX_CHUNK, 1), TOP)
+    _, top = limb_schedule(A, B, trm.RingShape(trm.MAX_CHUNK, 1))
+    assert top == 8 * trm.MAX_CHUNK * 255 ** 2 < 1 << 31
+    assert 8 * 4128 * 255 ** 2 < 1 << 31 <= 8 * 4129 * 255 ** 2
+
+
+@pytest.mark.parametrize("M,K,N", SMOKE_SHAPES)
+def test_limb_schedule_at_every_smoke_split(M, K, N):
+    """Every (chunk, splits) the picker returns at 132 SMs for the smoke's
+    shapes, on narrow random operands of the same K (the model's sums do
+    not depend on M and N): equal to the reference."""
+    shape = trm.ring_matmul_shape(M, K, N, 132)
+    A = RNG.integers(0, 1 << 64, (2, K), dtype=np.uint64)
+    B = RNG.integers(0, 1 << 64, (K, 3), dtype=np.uint64)
+    got, _ = limb_schedule(A, B, shape)
+    np.testing.assert_array_equal(got, reference(A, B))
+    np.testing.assert_array_equal(got, port(A, B))
+
+
+@pytest.mark.parametrize("M,K,N,chunk,splits", [
+    (128, 256, 64, 32, 8),           # the benchmark's row: 2 tiles
+    (12, 2048, 1, 32, 64),           # Table 1's X^T·<d>: one tile
+    (2048, 2048, 2048, 2048, 1),     # 1024 tiles fill the card: no split
+    (130, 40000, 10, 928, 44),       # 3 tiles × 44 splits = 132 blocks
+    (128, 40000, 64, 608, 66),       # 2 tiles × 66
+])
+def test_ring_matmul_shape_at_smoke_shapes(M, K, N, chunk, splits):
+    assert trm.ring_matmul_shape(M, K, N, 132) == trm.RingShape(chunk,
+                                                                splits)
+
+
+@pytest.mark.parametrize("M,K,N", SMOKE_SHAPES + ((1, 4097, 1),
+                                                  (4096, 8193, 4096),
+                                                  (64, 100000, 64)))
+def test_ring_matmul_shape_invariants(M, K, N):
+    """Whole K steps a block, inside the budget, every K term in exactly
+    one split, no split without a K step, and no more blocks than the
+    card's SMs unless the tiles or the budget need them."""
+    sh = trm.ring_matmul_shape(M, K, N, 132)
+    tiles = -(-M // trm.TILE_M) * -(-N // trm.TILE_N)
+    assert sh.chunk % trm.TILE_K == 0 and 0 < sh.chunk <= trm.MAX_CHUNK
+    assert sh.splits == -(-K // sh.chunk)
+    assert (sh.splits - 1) * sh.chunk < K
+    assert sh.splits >= -(-K // trm.MAX_CHUNK)
+    assert tiles * sh.splits <= max(132, tiles * -(-K // trm.MAX_CHUNK))
+
+
+@pytest.mark.gpu
+def test_ring_matmul_picker_branches_on_card(cuda_device):
+    """The kernel against its plain version on each branch of its launch:
+    no split with ragged M and N, split K on one tile, K = 1, odd K, the
+    full-budget chunk forced by K on a grid that fills the card
+    (all-0xFF), and a split tile grid with ragged edges."""
+    for (M, K, N), ones in (((65, 17, 129), False), ((130, 40000, 10), False),
+                            ((200, 1, 70), False), ((100, 32769, 3), False),
+                            ((768, 8192, 768), True), ((70, 5000, 66), False)):
+        if ones:
+            A, B = np.full((M, K), TOP), np.full((K, N), TOP)
+        else:
+            A, B = operands(M, K, N)
+        a = tring.from_numpy_u64(A, cuda_device)
+        b = tring.from_numpy_u64(B, cuda_device)
+        args = (a.hi, a.lo, b.hi, b.lo)
+        for got, want in zip(trm.ring_matmul_tiled(*args),
+                             trm.ring_matmul_plain(*args)):
+            assert torch.equal(got, want), (M, K, N)

@@ -392,3 +392,18 @@ def test_round_check_stubs_match_the_round_source():
     for name, subs in round_check.STUBS.items():
         for old, _ in subs:
             assert src.count(old) == 1, name
+
+
+@pytest.mark.parametrize("stubs,sources", [
+    ("K1_STUBS", ("rns_common.cuh", "rns_montmul.cu")),
+    ("K8_STUBS", ("ring_matmul.cu",)),
+    ("MATVEC_STUBS", ("rns_cluster.cuh", "rns_matvec.cu")),
+    ("FIXB_STUBS", ("rns_cluster.cuh", "rns_fixedbase.cu")),
+])
+def test_round_check_kernel_stubs_match_their_sources(stubs, sources):
+    """Every text a kernel's ablation stubs out is in that kernel's
+    sources, once, so `round_check --ablate` builds what it names."""
+    src = "".join((build.CSRC / f).read_text() for f in sources)
+    for name, subs in getattr(round_check, stubs).items():
+        for old, _ in subs:
+            assert src.count(old) == 1, (stubs, name)
