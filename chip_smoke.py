@@ -39,7 +39,17 @@ keys) through `repro_torch.core.trainer.train_vfl` three ways:
 
 each against the mock backend (losses, weights, per-tag bytes and rounds
 bit for bit), and checks that every kernel of each path launched (K1
-exactly 162 times on the RNS path and 150 on path B).  It prints K1's
+exactly 162 times on the RNS path and 150 on path B).  Then the paper's
+evaluation path (`phase_paper`): Table 1 (credit-default, batch 2048)
+and Table 2 (dvisits, Poisson, batch 512) at paper scale through
+`repro_torch.bench.table1_lr.run` and `table2_pr.run`, whose
+EFMVFL-*-paillier rows (1024-bit keys, the default engine: K1–K3, none
+of K4–K8, counted) must equal their mock rows on losses, weights,
+bytes, rounds and metrics, each profiled once more over 3 iterations;
+the SS-LR and SS-HE-LR rows on the card equal to the port's CPU runs of
+the same configuration; and `beaver.paillier_triple` (64,), `hom_sum`,
+`smul_const` and `smul_bits` at 1024-bit keys, right by their algebra
+and equal to the port's CPU run.  It prints K1's
 launches on the RNS path and path B by (batch, CH, shared operand) and
 times each in a CUDA graph beside an empty kernel.  Then
 a crossover probe times the RNS and CIOS Montgomery products at 256 to
@@ -59,10 +69,15 @@ exits non-zero.
 runs only the training paths (after one warm-up iteration), counted and
 profiled: the part to copy into another checkout of the port to compare
 the two on one card.
+
+    python3 chip_smoke.py --paper    # only the paper's evaluation path
+
+runs only `phase_paper`.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -746,37 +761,109 @@ def table1_kw() -> dict:
 
 
 def check_equal(label: str, res, ref):
+    """`res` equal to the mock run `ref` (`tables.require_equal`: losses,
+    weights, bytes by tag, rounds), finite, and ITERS iterations long."""
     import numpy as np
-    if res.losses != ref.losses:
-        fail(f"{label}: losses {res.losses} != mock losses {ref.losses}")
-    for name in ref.weights:
-        if not np.array_equal(res.weights[name], ref.weights[name]):
-            fail(f"{label}: weights of {name} differ from the mock run")
-    if dict(res.meter.by_tag) != dict(ref.meter.by_tag) \
-            or res.rounds != ref.rounds:
-        fail(f"{label}: meters different bytes or rounds than the mock run")
+    from repro_torch.bench import tables
+    try:
+        tables.require_equal(label, res, ref)
+    except RuntimeError as e:
+        fail(f"{e} (against the mock run)")
     if not all(np.isfinite(res.losses)) or res.n_iter != ITERS:
         fail(f"{label}: bad result: losses {res.losses}, n_iter "
              f"{res.n_iter}")
 
 
-def counted_run(run):
-    """`run()` with every launch count set to 0 just before and read just
-    after; returns (result, launches, host seconds, peak device bytes)."""
-    import torch
-    ws = wrappers()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for w in ws.values():
+def reset_counts():
+    """Every wrapper's launch count (and shape counts) set to 0."""
+    for w in wrappers().values():
         w.launches = 0
         if hasattr(w, "shapes"):
             w.shapes.clear()
+
+
+def counted_run(run):
+    """`run()` with every launch count set to 0 just before and read just
+    after; returns (result, launches, host seconds, peak device bytes of
+    the run: the peak less what was allocated just before it)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
     t0 = time.perf_counter()
     res = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in ws.items()}
-    return res, launches, wall, torch.cuda.max_memory_allocated()
+    launches = {k: w.launches for k, w in wrappers().items()}
+    return res, launches, wall, torch.cuda.max_memory_allocated() - base
+
+
+def path_shapes() -> dict:
+    """The shapes K1, K2 and K3 launched at since the counts were last
+    set to 0, each with its launches (the wrappers' `.shapes`)."""
+    ws = wrappers()
+    return {k: dict(ws[k].shapes) for k in RNS_PATH}
+
+
+def hold_at_shapes(label: str, shapes: dict) -> int:
+    """K1, K2 and K3 against their plain versions on the card at every
+    shape of `shapes` (`path_shapes`): random states of that shape on the
+    1024-bit key's context of its CH, random bits (per-row or shared as
+    launched) or digits (the matvec also at all-max digits), with the
+    launch shape the path used; every output equal channel for channel.
+    Returns the number of outputs held."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import matvec_check, round_check
+    from repro_torch.kernels import montexp, montmul
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(31)
+    ctxs = round_check.k1_contexts()
+    held = []
+
+    def ctx_of(ch):
+        if ch not in ctxs:
+            fail(f"{label}: no context with CH {ch} to check K1-K3 at")
+        return ctxs[ch]
+
+    def hold(name, got, want):
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"{label}: {name}: kernel differs from the plain version "
+                 f"(max abs diff {_max_err(got, want)})")
+        held.append(name)
+    for batch, ch, shared in shapes["rns_montmul"]:
+        c = ctx_of(ch)
+        x = _random_states(c, batch, gen, dev)
+        y = _random_states(c, batch, gen, dev)
+        y = y[0].contiguous() if shared else y
+        hold(f"rns_montmul ({batch}, {ch}{', shared y' if shared else ''})",
+             montmul.rns_montmul_tiled(x, y, c), montmul.plain(x, y, c))
+    for rows, ch, nbits, shared in shapes["rns_mont_exp"]:
+        c = ctx_of(ch)
+        u = _random_states(c, rows, gen, dev)
+        e = torch.as_tensor(gen.integers(0, 2, size=nbits if shared
+                                         else (rows, nbits)),
+                            dtype=torch.int32, device=dev)
+        hold(f"rns_mont_exp ({rows}, {ch}) x {nbits} "
+             f"{'shared' if shared else 'per-row'} bits",
+             montexp.rns_mont_exp_tiled(u, e, c),
+             montexp.plain_ladder(u, e, c))
+    for nrows, m, levels, window, ch, sh in shapes["rns_he_matvec"]:
+        c = ctx_of(ch)
+        u = _random_states(c, nrows, gen, dev)
+        for kind in (0, 2):
+            dg = matvec_check.digits_of(kind, (levels, nrows, m), window,
+                                        gen, dev)
+            hold(f"rns_he_matvec ({nrows} rows, m {m}, {levels} levels, "
+                 f"window {window}, {sh}, "
+                 f"{'random' if kind == 0 else 'all-max'} digits)",
+                 montexp.rns_he_matvec_tiled(u, dg, c, window=window,
+                                             shape=sh),
+                 montexp.plain_matvec(u, dg, c, window, sh.chunk, sh.split))
+    log(f"[{label}] K1-K3 equal to their plain versions at every shape "
+        f"they launched at ({len(held)} outputs): " + "; ".join(held))
+    return len(held)
 
 
 def k1_launch_list(label: str) -> dict:
@@ -812,8 +899,8 @@ def profiled_run(label: str, run) -> dict:
     top_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
     run_ms = res.runtime_s * 1e3
     share = total_dev_us / 1e3 / max(run_ms, 1e-9)
-    log(f"[profile {label}] {res.runtime_s / ITERS:.3f} s/iteration under "
-        f"the profiler; device time of all CUDA work "
+    log(f"[profile {label}] {res.runtime_s / res.n_iter:.3f} s/iteration "
+        f"under the profiler; device time of all CUDA work "
         f"{total_dev_us / 1e3:.1f} ms = {100 * share:.1f}% of the "
         f"iterations' host time")
     log(f"[profile {label}] device ms by kernel " + json.dumps(
@@ -824,7 +911,8 @@ def profiled_run(label: str, run) -> dict:
     log(f"[profile {label}] top host ops by self CPU (ms, calls): "
         + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} "
                     f"{e.count}" for e in top_cpu))
-    return dict(profiled_s_per_iter=res.runtime_s / ITERS,
+    return dict(profiled_s_per_iter=res.runtime_s / res.n_iter,
+                n_iter=res.n_iter,
                 device_ms={k: v / 1e3 for k, v in dev_us.items() if v},
                 all_device_ms=total_dev_us / 1e3, device_share=share)
 
@@ -977,6 +1065,186 @@ def phase_path_b(results, mock):
                               table_load_s=load_s, launches=launches, **prof)
 
 
+# ---------------------------------------------------------------------------
+# the paper's evaluation path: Table 1 and Table 2 through their scripts
+# ---------------------------------------------------------------------------
+
+RNS_PATH = ("rns_montmul", "rns_mont_exp", "rns_he_matvec")
+OFF_RNS_PATH = ("rns_fixed_base", "montmul", "mont_exp", "he_matvec",
+                "ring_matmul")
+
+
+def paper_table(results, mod, label: str, metric_keys):
+    """One table at paper scale through `mod.run`: its Paillier row
+    counted (K1–K3 launched, K4–K8 not) and profiled; its results kept
+    for the SS comparison."""
+    import dataclasses
+    from repro_torch.core.trainer import train_vfl
+    kept, counts = {}, {}
+
+    def call(name, train):
+        if name == mod.PAILLIER_ROW:
+            res, launches, _, peak = counted_run(train)
+            counts.update(launches=launches, peak_bytes=peak,
+                          shapes=path_shapes())
+        else:
+            res = train()
+        kept[name] = res
+        return res
+    t0 = time.perf_counter()
+    try:
+        rows = mod.run(paper_scale=True, device="cuda", call=call)
+    except RuntimeError as e:        # a Paillier row that differs from mock
+        fail(f"{label}: {e}")
+    total_s = time.perf_counter() - t0
+    launches = counts["launches"]
+    require(f"{label} {mod.PAILLIER_ROW}", launches, positive=RNS_PATH,
+            zero=OFF_RNS_PATH)
+    held = hold_at_shapes(label, counts["shapes"])
+    res = kept[mod.PAILLIER_ROW]
+    for r in rows:
+        if not all(math.isfinite(r[k]) for k in metric_keys) \
+                or r["iters"] < 1:
+            fail(f"{label}: bad row {r}")
+        log(f"[{label}] " + json.dumps(r))
+    n_iter = res.n_iter
+    log(f"[{label}] {mod.PAILLIER_ROW} equal to its mock row (losses, "
+        f"weights, bytes, rounds, {', '.join(metric_keys)}); {n_iter} "
+        f"iterations, {res.runtime_s / n_iter:.4f} s/iteration (host "
+        f"clock after a synchronisation; one 1-iteration warm-up run "
+        f"before it); peak device memory {counts['peak_bytes'] / 2**20:.1f}"
+        f" MiB; launches {launches} ("
+        + ", ".join(f"{k} {launches[k] / n_iter:.1f}" for k in RNS_PATH)
+        + f" an iteration); the whole table {total_s:.1f} s")
+    # profiled at ITERS iterations: the profiler's tables of a 30-iteration
+    # run (570k launches) take minutes to build
+    s = mod.setup(paper_scale=True, device="cuda")
+    prof = profiled_run(label, lambda: train_vfl(
+        s.parties, s.y, dataclasses.replace(s.cfg, he_backend="paillier",
+                                            max_iter=ITERS)))
+    it = prof["n_iter"]
+    log(f"[{label}] device time {prof['all_device_ms'] / it:.2f} ms an "
+        f"iteration under the profiler; by kernel an iteration " + json.dumps(
+            {k: round(v / it, 3) for k, v in prof["device_ms"].items()}))
+    for k in RNS_PATH:
+        results.setdefault(k, {}).setdefault("paper_launches", {})[
+            label] = launches[k]
+    return rows, kept, dict(prof, profiled_iters=it,
+                            s_per_iter=res.runtime_s / n_iter,
+                            n_iter=n_iter, launches=launches,
+                            peak_bytes=counts["peak_bytes"], table_s=total_s,
+                            rows=rows, held_at_path_shapes=held)
+
+
+def paper_ss_on_cpu(kept):
+    """SS-LR and SS-HE-LR of the card's Table 1 run against the port's
+    own runs of the same configuration on the CPU: their ring arithmetic
+    is exact, so losses, weights and bytes must be bit-identical."""
+    import dataclasses
+    from repro_torch.baselines import ss_glm, ss_he_lr
+    from repro_torch.bench import table1_lr, tables
+    s = table1_lr.setup(paper_scale=True, device="cpu")
+    for name, fn in (("SS-LR", ss_glm.train_ss),
+                     ("SS-HE-LR", ss_he_lr.train_ss_he)):
+        t0 = time.perf_counter()
+        ref = fn(s.parties, s.y, s.cfg)
+        try:
+            tables.require_equal(f"table1 {name} (cuda against cpu)",
+                                 kept[name], ref)
+        except RuntimeError as e:
+            fail(str(e))
+        log(f"[table1] {name} on cuda equal to the port's CPU run "
+            f"(losses, weights, bytes; {ref.n_iter} iterations; "
+            f"{kept[name].runtime_s / ref.n_iter:.4f} s/iteration on cuda, "
+            f"{ref.runtime_s / ref.n_iter:.4f} on the CPU; "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+
+def paper_triple(priv, devices=("cuda", "cpu")):
+    """`beaver.paillier_triple`, `hom_sum`, `smul_const` and `smul_bits` at
+    1024-bit keys on the card: right by their own algebra and equal, limb
+    for limb and share for share, to the port's CPU run from the same
+    seeds (`devices`: the card, then the CPU; the CPU side is checked by
+    that equality alone)."""
+    import numpy as np
+    import torch
+    from repro_torch.crypto import bigint, engine, paillier, ring, threefry
+    from repro_torch.mpc import beaver
+    pub = priv.pub
+    out = []
+    for dev in devices:
+        eng = engine.make("auto")
+        reset_counts()
+        t0 = time.perf_counter()
+        t = beaver.paillier_triple((64,), priv, np.random.default_rng(5),
+                                   threefry.key(6), engine=eng, device=dev)
+        gen = np.random.default_rng(7)
+        ms = [int.from_bytes(gen.bytes(16), "little") for _ in range(64)]
+        c = paillier.encrypt(pub, bigint.as_limbs(
+            paillier.encode_ints(pub, ms), dev), eng, rng=gen)
+        ks = [int(v) for v in gen.integers(0, 1 << 63, size=64)]
+        bits = np.array([[(k >> (63 - i)) & 1 for i in range(64)]
+                         for k in ks], np.uint32)
+        big = (1 << 1000) + 77
+        ops = {f"hom_sum_{m}": paillier.hom_sum(pub, c[:m], engine=eng)[None]
+               for m in (1, 2, 7, 64)}
+        ops["smul_const"] = paillier.smul_const(pub, c[:8], big, eng)
+        ops["smul_bits"] = paillier.smul_bits(pub, c, bits, eng)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out.append(dict(triple=t, ops=ops, s=time.perf_counter() - t0,
+                        shapes=path_shapes()))
+        if len(out) > 1:
+            break
+        want = {f"hom_sum_{m}": [sum(ms[:m]) % pub.n] for m in (1, 2, 7, 64)}
+        want["smul_const"] = [m * big % pub.n for m in ms[:8]]
+        want["smul_bits"] = [m * k % pub.n for m, k in zip(ms, ks)]
+        for name, ct in ops.items():
+            if paillier.decode_ints(paillier.decrypt_crt(priv, ct, eng)) \
+                    != want[name]:
+                fail(f"paillier ops ({dev}): {name} does not decrypt to "
+                     "the right plaintexts")
+        t0_, t1_ = t
+        a = ring.to_numpy_u64(ring.add(t0_.a, t1_.a))
+        b = ring.to_numpy_u64(ring.add(t0_.b, t1_.b))
+        c_ = ring.to_numpy_u64(ring.add(t0_.c, t1_.c))
+        if not np.array_equal(c_, a * b):
+            fail(f"paillier_triple ({dev}): c0 + c1 != (a0 + a1)(b0 + b1) "
+                 "mod 2^64")
+    for i, (tc, tp) in enumerate(zip(out[0]["triple"], out[1]["triple"])):
+        for f in ("a", "b", "c"):
+            if not np.array_equal(ring.to_numpy_u64(getattr(tc, f)),
+                                  ring.to_numpy_u64(getattr(tp, f))):
+                fail(f"paillier_triple: share {f}{i} on cuda differs from "
+                     "the CPU run")
+    for name, ct in out[0]["ops"].items():
+        if not torch.equal(ct.cpu(), out[1]["ops"][name]):
+            fail(f"paillier ops: {name} limbs on cuda differ from the CPU "
+                 "run")
+    held = hold_at_shapes("paper", out[0]["shapes"])
+    log(f"[paper] paillier_triple (64,) at {pub.key_bits}-bit keys: c0 + c1 "
+        f"= (a0 + a1)(b0 + b1) mod 2^64 and all six shares equal to the CPU "
+        f"run; hom_sum over 1, 2, 7, 64, smul_const and smul_bits (64 x 64 "
+        f"bits) decrypt right and equal the CPU limbs; {devices[0]} "
+        f"{out[0]['s']:.2f} s, {devices[1]} {out[1]['s']:.2f} s")
+    return {"card_s": out[0]["s"], "cpu_s": out[1]["s"],
+            "held_at_path_shapes": held}
+
+
+def phase_paper(results, priv):
+    """The paper's evaluation path: Table 1 and Table 2 at paper scale
+    through their scripts, each Paillier row equal to its mock row; the
+    SS rows against the port's CPU runs; the triple preprocessing."""
+    from repro_torch.bench import table1_lr, table2_pr
+    t1_rows, kept, t1 = paper_table(results, table1_lr, "table1",
+                                    ("auc", "ks"))
+    paper_ss_on_cpu(kept)
+    t2_rows, _, t2 = paper_table(results, table2_pr, "table2",
+                                 ("mae", "rmse"))
+    triple_s = paper_triple(priv)
+    results["_paper"] = dict(table1=t1, table2=t2, triple_s=triple_s)
+
+
 def phase_k1_shapes(results):
     """K1 at every (batch, CH, shared y) it launched at on the RNS path
     and path B, each in a CUDA graph beside an empty kernel's launch
@@ -1047,7 +1315,6 @@ def phase_bench(results):
     finite time and an output equal to its plain computation (kernel and
     engine rows to their library rows, `kernel_bench.run` checks), K1–K8
     each launched; guard violations are printed."""
-    import math
     from repro_torch.bench import kernel_bench
     try:
         rows, launches, wall, peak = counted_run(
@@ -1084,6 +1351,9 @@ def main(argv=None):
                     "against the mock run, counted and profiled): the "
                     "phase to copy into another checkout of the port to "
                     "time it beside this one")
+    ap.add_argument("--paper", action="store_true",
+                    help="only run the paper's evaluation path (Table 1 "
+                    "and Table 2 at paper scale, the triple preprocessing)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1119,6 +1389,11 @@ def main(argv=None):
         log(f"[done] paths only, {time.perf_counter() - t_start:.1f} s; "
             f"card {card}")
         return
+    if args.paper:
+        phase_paper(results, priv)
+        log(f"[done] paper path only, {time.perf_counter() - t_start:.1f} "
+            f"s; card {card}; summary {json.dumps(results['_paper'])}")
+        return
     phase_rns_kernels(ctx_n2, ctx_p2, results)
     phase_cios_kernels(priv.pub.mod_n2, priv.crt_p.mod_p2, results)
     for k2, k6 in zip(results["rns_mont_exp"]["shapes"],
@@ -1135,6 +1410,7 @@ def main(argv=None):
     phase_train(results, mock)
     phase_path_a(results, mock)
     phase_path_b(results, mock)
+    phase_paper(results, priv)
     phase_k1_shapes(results)
     phase_probe(results)
     phase_bench(results)
@@ -1149,7 +1425,7 @@ def main(argv=None):
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"),
                         "bound_by": r.get("bound_by"), "library_ms": None})
-        for extra in ("graph_ms", "shapes"):
+        for extra in ("graph_ms", "shapes", "paper_launches"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card {card}; "

@@ -1,21 +1,31 @@
-"""Benchmark entry point of the port: the ``kernels`` mode of the
-reference's `benchmarks/run.py`, on one CUDA card.
+"""Benchmark entry point of the port: the ``kernels``, ``table1``,
+``table2`` and ``fig1`` modes of the reference's `benchmarks/run.py`.
 
     python -m repro_torch.bench.run --only kernels [--smoke]
     python -m repro_torch.bench.run --guards
+    python -m repro_torch.bench.run --only table1 [--paper]
+    python -m repro_torch.bench.run --only table2 [--paper]
+    python -m repro_torch.bench.run --only fig1
+    python -m repro_torch.bench.run --only table1 --device cpu --n 180 \
+        --iters 3 --key-bits 192          # a check without the card
 
-Prints ``name,us_per_call,derived`` CSV lines, one per row of
-`kernel_bench.run`.  Full mode writes ``BENCH_cuda_crypto.json`` at the
-root of the checkout: a header (schema, torch and CUDA versions, the
-card's name and power limit as ``nvidia-smi`` reports them, the default
-engine) and the rows.  ``--smoke`` shrinks every size and writes
+Prints ``name,us_per_call,derived`` CSV lines.  ``kernels``: one line
+per row of `kernel_bench.run`; full mode writes ``BENCH_cuda_crypto.json``
+at the root of the checkout: a header (schema, torch and CUDA versions,
+the card's name and power limit as ``nvidia-smi`` reports them, the
+default engine) and the rows.  ``--smoke`` shrinks every size and writes
 nothing.  ``--guards`` re-checks the guard rows of the committed file
-without measuring.
+without measuring.  ``table1`` / ``table2``: the paper's rows
+(`table1_lr.run`, `table2_pr.run`), each with its EFMVFL row also run
+on real Paillier and held equal to the mock row; with ``--paper`` on
+the card they are written, under the same header, to
+``BENCH_cuda_table1.json`` / ``BENCH_cuda_table2.json``.  ``fig1``: the
+loss curves' gap to the centralised oracle (writes nothing).
 
 One difference from the reference: a guard violation is reported after
 the file is written, so a violation measured on the card is recorded,
-not lost; the exit code is non-zero all the same.  Needs a CUDA card
-(no fallback to the CPU).
+not lost; the exit code is non-zero all the same.  ``--device cuda``
+(the default) needs a CUDA card: there is no fallback to the CPU.
 """
 from __future__ import annotations
 
@@ -32,6 +42,8 @@ from repro_torch.crypto import engine as engine_mod
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BENCH_PATH = REPO_ROOT / "BENCH_cuda_crypto.json"
 SCHEMA = "bench_cuda_crypto/v1"
+TABLE_PATHS = {"table1": REPO_ROOT / "BENCH_cuda_table1.json",
+               "table2": REPO_ROOT / "BENCH_cuda_table2.json"}
 
 
 def _csv(name: str, us: float, derived: str = "") -> None:
@@ -44,6 +56,22 @@ def card() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def header(schema: str) -> dict:
+    """The head of a written file: schema, versions, the card, and the
+    default engine's pipeline."""
+    return {
+        "schema": schema,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "device": torch.cuda.get_device_name(0),
+        "card": card(),
+        "default_crypto_engine": {
+            "backend": engine_mod.make().backend,
+            "pipeline": engine_mod.resolve_pipeline(),
+            "rns_min_bits": engine_mod.RNS_MIN_BITS},
+    }
 
 
 def check_committed_guards(path: pathlib.Path = BENCH_PATH) -> None:
@@ -74,18 +102,7 @@ def bench_kernels(smoke: bool = False) -> None:
     if smoke:
         print(f"# smoke mode: {BENCH_PATH.name} not written")
     else:
-        report = {
-            "schema": SCHEMA,
-            "torch": torch.__version__,
-            "cuda": torch.version.cuda,
-            "device": torch.cuda.get_device_name(0),
-            "card": card(),
-            "default_crypto_engine": {
-                "backend": engine_mod.make().backend,
-                "pipeline": engine_mod.resolve_pipeline(),
-                "rns_min_bits": engine_mod.RNS_MIN_BITS},
-            "kernels": rows,
-        }
+        report = {**header(SCHEMA), "kernels": rows}
         BENCH_PATH.write_text(json.dumps(report, indent=1) + "\n")
         print(f"# wrote {BENCH_PATH}")
     if failures:
@@ -94,23 +111,85 @@ def bench_kernels(smoke: bool = False) -> None:
                          + "\n  ".join(failures))
 
 
-def main() -> None:
+def bench_table(which: str, paper: bool, device: str, n=None, iters=None,
+                key_bits: int = 1024) -> list[dict]:
+    """The rows of Table 1 or Table 2, printed; written to
+    `TABLE_PATHS[which]` at ``--paper`` scale on the card."""
+    from repro_torch.bench import table1_lr, table2_pr
+    mod = table1_lr if which == "table1" else table2_pr
+    metric_keys = ("auc", "ks") if which == "table1" else ("mae", "rmse")
+    rows = mod.run(paper, n=n, iters=iters, device=device,
+                   key_bits=key_bits)
+    for r in rows:
+        ref = r["paper_ref"]
+        _csv(f"{which}.{r['framework']}", r["runtime_s"] * 1e6,
+             ";".join(f"{k}={r[k]}" for k in metric_keys)
+             + f";comm_mb={r['comm_mb']};iters={r['iters']};"
+             f"s_per_iter={r['s_per_iter']:.4f};paper_{metric_keys[0]}="
+             f"{ref[0]};paper_comm_mb={ref[2]}")
+    path = TABLE_PATHS[which]
+    if paper and device == "cuda" and n is None and iters is None:
+        report = {**header(f"bench_cuda_{which}/v1"), "paper_scale": True,
+                  "key_bits": key_bits,
+                  "paper_ref_note": "paper_ref: the paper's own figures "
+                  "(16-core Xeon, 1 Gbps); context, not a target",
+                  "rows": rows}
+        path.write_text(json.dumps(report, indent=1) + "\n")
+        print(f"# wrote {path}")
+    else:
+        print(f"# {path.name} is written only at --paper scale on the card")
+    return rows
+
+
+def bench_fig1(device: str, n: int | None = None,
+               iters: int | None = None) -> dict:
+    from repro_torch.bench import fig1_losses
+    curves = fig1_losses.run(iters or 15, n=n or 4000, device=device)
+    for glm, c in curves.items():
+        gap = max(abs(a - b) for a, b in zip(c["efmvfl"], c["centralized"]))
+        _csv(f"fig1.{glm}", 0.0,
+             f"iters={len(c['efmvfl'])};max_gap_vs_centralized={gap:.4f}")
+        for k in ("efmvfl", "tp"):
+            print(f"# fig1.{glm}.{k}=" + ";".join(f"{v:.4f}" for v in c[k]))
+    return curves
+
+
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", default="kernels", choices=["kernels"],
-                    help="the reference's mode switch, kept for the same "
-                         "command line; kernels is the only mode ported, "
-                         "so it selects nothing")
+    ap.add_argument("--only", default="kernels",
+                    choices=["kernels", "table1", "table2", "fig1"],
+                    help="which benchmark to run (default kernels)")
     ap.add_argument("--smoke", action="store_true",
-                    help="tiny sizes; writes no file")
+                    help="kernels: tiny sizes; writes no file")
     ap.add_argument("--guards", action="store_true",
                     help=f"validate the guard rows of {BENCH_PATH.name} "
                          "and exit (no measurement)")
-    args = ap.parse_args()
+    ap.add_argument("--paper", action="store_true",
+                    help="table1/table2: the paper-scale configuration")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="table1/table2/fig1: where shares and ciphertexts "
+                         "live")
+    ap.add_argument("--n", type=int, default=None,
+                    help="table1/table2/fig1: cut the sample count")
+    ap.add_argument("--iters", type=int, default=None,
+                    help="table1/table2/fig1: cut the iteration count")
+    ap.add_argument("--key-bits", type=int, default=1024,
+                    help="table1/table2: Paillier key size of every row")
+    args = ap.parse_args(argv)
     if args.guards:
         check_committed_guards()
         return
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda needs a CUDA card "
+                         "(torch.cuda.is_available() is false)")
     print("name,us_per_call,derived")
-    bench_kernels(smoke=args.smoke)
+    if args.only == "kernels":
+        bench_kernels(smoke=args.smoke)
+    elif args.only == "fig1":
+        bench_fig1(args.device, args.n, args.iters)
+    else:
+        bench_table(args.only, args.paper, args.device, args.n, args.iters,
+                    args.key_bits)
 
 
 if __name__ == "__main__":

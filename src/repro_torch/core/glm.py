@@ -190,6 +190,16 @@ class GLM:
     loss_leg: Callable[[PairLeg, LegCtx], R64] | None = None
 
 
+def linear_gradient_leg(leg: PairLeg, c: LegCtx) -> R64:
+    return ring.sub(c.z, c.y)
+
+
+def linear_loss_leg(leg: PairLeg, c: LegCtx) -> R64:
+    r = ring.sub(c.z, c.y)
+    r2 = leg.trunc(leg.mul(r, r), c.f + 1)
+    return ring.sum_axis(r2, 0)
+
+
 LOGISTIC = GLM(
     name="logistic",
     gradient_operator=lr_gradient_operator,
@@ -220,9 +230,71 @@ POISSON = GLM(
 )
 
 
+LINEAR = GLM(   # the paper: "also suitable for Linear, Gamma, …"
+    name="linear",
+    gradient_operator=_pair(linear_gradient_leg),
+    loss_shares=_pair(linear_loss_leg),
+    needs_exp=False,
+    d_float=lambda wx, y: wx - y,
+    loss_float=lambda wx, y: float(0.5 * np.mean((wx - y) ** 2)),
+    predict=lambda wx: wx,
+    finalize_loss=lambda revealed, y, m: revealed / m,
+    gradient_leg=linear_gradient_leg,
+    loss_leg=linear_loss_leg,
+)
+
+
 def _log_factorial(y: np.ndarray) -> np.ndarray:
     from scipy.special import gammaln
     return gammaln(np.asarray(y, np.float64) + 1.0)
 
 
-GLMS = {g.name: g for g in (LOGISTIC, POISSON)}
+# --- Gamma (paper §4.2) — log link, so the gradient-operator has the same
+# e^{WX} − y·(…) structure as Poisson and reuses its share plumbing.
+
+def gamma_gradient_leg(leg: PairLeg, c: LegCtx) -> R64:
+    """Gamma with log link: d = 1 − y·e^{−WX}.  Protocol form: parties
+    share e^{-z_p} in the ez slot (`GLM.exp_sign` = −1), giving
+    d = 1 − y∘ez via one Beaver product."""
+    assert c.ez is not None
+    prod = leg.trunc(leg.mul(c.y, c.ez), c.f)
+    if leg.index == 0:
+        one = ring.from_signed_f64(np.ones(c.z.lo.shape), c.f, c.z.device)
+        return ring.sub(one, prod)
+    return ring.neg(prod)
+
+
+def gamma_loss_leg(leg: PairLeg, c: LegCtx) -> R64:
+    """Σ_i (WX + y·e^{−WX}) (unit-deviance core; constants at C)."""
+    prod = leg.trunc(leg.mul(c.y, c.ez), c.f)
+    return ring.sum_axis(ring.add(c.z, prod), 0)
+
+
+GAMMA = GLM(
+    name="gamma",
+    gradient_operator=_pair(gamma_gradient_leg),
+    loss_shares=_pair(gamma_loss_leg),
+    needs_exp=True,          # the parties share e^{-z_p}
+    d_float=lambda wx, y: 1.0 - y * np.exp(-wx),
+    loss_float=lambda wx, y: float(np.mean(wx + y * np.exp(-wx))),
+    predict=lambda wx: np.exp(wx),
+    finalize_loss=lambda revealed, y, m: revealed / m,
+    exp_sign=-1,
+    gradient_leg=gamma_gradient_leg,
+    loss_leg=gamma_loss_leg,
+)
+
+GLMS = {g.name: g for g in (LOGISTIC, POISSON, LINEAR, GAMMA)}
+
+#: Beaver multiplications in the gradient-operator + loss legs (the
+#: e^z chaining adds k−1 more for exp-family models) — see
+#: `joint_muls_per_iteration`.
+JOINT_LOSS_MULS = {"logistic": 2, "linear": 1, "poisson": 1, "gamma": 2}
+
+
+def joint_muls_per_iteration(glm_name: str, n_parties: int) -> int:
+    """Beaver-triple draws the CP pair consumes in one Algorithm-1
+    iteration: the e^z chain's k−1 for exp-family models plus the
+    gradient-operator and loss legs' own."""
+    chain = n_parties - 1 if GLMS[glm_name].needs_exp else 0
+    return chain + JOINT_LOSS_MULS[glm_name]

@@ -16,6 +16,7 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch.core import glm as glm_lib
 from repro_torch.core import protocols
 from repro_torch.core.comm import CommMeter
 from repro_torch.crypto import engine as engine_mod
@@ -60,6 +61,12 @@ class TrainResult:
     n_iter: int
     rounds: int = 0                   # communication rounds (transport count)
 
+    def predict_wx(self, parties: Sequence[PartyData]) -> np.ndarray:
+        # matvec_rowwise (not @): a fixed summation order, so the score
+        # of a row does not depend on the batch it is scored in
+        return sum(glm_lib.matvec_rowwise(p.X, self.weights[p.name])
+                   for p in parties)
+
 
 def make_backend(cfg: VFLConfig, party_names: Sequence[str],
                  rng: np.random.Generator):
@@ -80,3 +87,33 @@ def train_vfl(parties: list[PartyData], y: np.ndarray, cfg: VFLConfig,
     sched = VFLScheduler(parties, y, cfg, backend=backend,
                          transport=transport)
     return sched.run()
+
+
+# ---------------------------------------------------------------------------
+# Centralized float oracle (same MacLaurin gradients — the quality target)
+# ---------------------------------------------------------------------------
+
+def train_centralized(X: np.ndarray, y: np.ndarray, cfg: VFLConfig
+                      ) -> tuple[np.ndarray, list[float]]:
+    """Same batch schedule and same pre-update loss semantics as Algorithm 1
+    so the loss curves are directly comparable (paper Fig. 1).  Host
+    numpy float64, as in the reference."""
+    model = glm_lib.GLMS[cfg.glm]
+    rng = np.random.default_rng(cfg.seed)
+    w = np.zeros(X.shape[1])
+    losses = []
+    order = rng.permutation(len(X))
+    cursor = 0
+    for _ in range(cfg.max_iter):
+        if cursor + cfg.batch_size > len(X):
+            order = rng.permutation(len(X))
+            cursor = 0
+        idx = order[cursor:cursor + cfg.batch_size]
+        cursor += cfg.batch_size
+        wx = X[idx] @ w
+        d = model.d_float(wx, y[idx])
+        losses.append(model.loss_float(wx, y[idx]))   # loss at current w
+        w = w - cfg.lr * (X[idx].T @ d) / len(idx)
+        if len(losses) > 1 and abs(losses[-1] - losses[-2]) < cfg.tol:
+            break
+    return w, losses

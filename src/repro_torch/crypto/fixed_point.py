@@ -50,3 +50,11 @@ def limbs_to_r64(x: torch.Tensor) -> R64:
     lo = (l0 | (l1 << 12) | (l2 << 24)) & ring.M32
     hi = ((l2 >> 8) | (l3 << 4) | (l4 << 16) | (l5 << 28)) & ring.M32
     return R64(hi, lo)
+
+
+def u64_bits_msb(a: R64, nbits: int = 64) -> torch.Tensor:
+    """Ring residue -> MSB-first bit vector (for HE scalar multiply)."""
+    shifts = torch.arange(31, -1, -1, device=a.device)
+    full = torch.cat([(a.hi[..., None] >> shifts) & 1,
+                      (a.lo[..., None] >> shifts) & 1], dim=-1)
+    return full[..., 64 - nbits:]

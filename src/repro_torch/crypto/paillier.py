@@ -340,3 +340,30 @@ def add_ct(pub: PublicKey, c1, c2, engine: CryptoEngine) -> torch.Tensor:
     """[[a]] ⊕ [[b]] = [[a + b mod n]]."""
     return engine.mont_mul(as_limbs(c1), as_limbs(c2), pub.mod_n2)
 
+
+def smul_bits(pub: PublicKey, c, exp_bits, engine: CryptoEngine
+              ) -> torch.Tensor:
+    """[[a]] ⊗ k = [[a * k mod n]], k given as an MSB-first bit vector
+    (one per row, or one shared).  Constant-time ladder."""
+    return engine.mont_exp_bits(as_limbs(c), exp_bits, pub.mod_n2)
+
+
+def smul_const(pub: PublicKey, c, k: int, engine: CryptoEngine
+               ) -> torch.Tensor:
+    if k < 0:
+        raise ValueError("lift negative multipliers to residues first")
+    return engine.mont_exp_const(as_limbs(c), k, pub.mod_n2)
+
+
+def hom_sum(pub: PublicKey, c, axis: int = 0, *, engine: CryptoEngine
+            ) -> torch.Tensor:
+    """⊕-reduce a batch of ciphertexts along `axis`: a halving tree, the
+    odd tail carried to the next level (the reference's schedule)."""
+    c = torch.movedim(as_limbs(c), axis, 0)
+    while c.shape[0] > 1:
+        half = c.shape[0] // 2
+        merged = engine.mont_mul(c[:half], c[half:2 * half], pub.mod_n2)
+        if c.shape[0] % 2:
+            merged = torch.cat([merged, c[2 * half:]], dim=0)
+        c = merged
+    return c[0]

@@ -152,7 +152,9 @@ def matmul(x_pub_int, a: R64) -> R64:
     (..., n, k).  Signed entries are lifted to their Z_2^64 residues
     (hi = sign extension), which is exact under mod-2^64 semantics.
     """
-    x = torch.as_tensor(np.asarray(x_pub_int), device=a.device).to(torch.int64)
+    if not isinstance(x_pub_int, torch.Tensor):
+        x_pub_int = torch.as_tensor(np.asarray(x_pub_int))
+    x = x_pub_int.to(device=a.device, dtype=torch.int64)
     xlo = x & M32
     xhi = torch.where(x < 0, M32, 0).to(torch.int64)
     xa = R64(xhi[..., :, :, None], xlo[..., :, :, None])

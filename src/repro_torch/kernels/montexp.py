@@ -32,6 +32,7 @@ in `.launches`.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 
@@ -228,7 +229,8 @@ def rns_mont_exp_tiled(u: torch.Tensor, bits: torch.Tensor,
                        ctx: RNSContext) -> torch.Tensor:
     """u (batch, CH) int32 ·B-domain bases; bits (batch, nbits) or one
     shared (nbits,) MSB-first exponent, int32 0/1 → (batch, CH) int32
-    states of u^e·R (the ladder plus the exit round)."""
+    states of u^e·R (the ladder plus the exit round).  Each launch also
+    counts its (batch, CH, nbits, shared bits) in `.shapes`."""
     if u.device.type == "cpu" and bits.device.type == "cpu":
         return plain_ladder(u, bits, ctx)
     check_states(u, ctx, "rns_mont_exp u")
@@ -247,6 +249,7 @@ def rns_mont_exp_tiled(u: torch.Tensor, bits: torch.Tensor,
              torch.cuda.current_stream(u.device).cuda_stream)
     build.check(err, "rns_mont_exp")
     rns_mont_exp_tiled.launches += 1
+    rns_mont_exp_tiled.shapes[(batch, ctx.CH, nbits, bits.dim() == 1)] += 1
     return out
 
 
@@ -258,7 +261,8 @@ def rns_he_matvec_tiled(u: torch.Tensor, digits: torch.Tensor,
     the column products ·R (every fold and the exit round inside the
     kernel).  `shape` defaults to `matvec_shape` for this device; nrows
     must be a multiple of its chunk (`MatvecShape.pad_rows`; padding rows
-    hold the state of one and zero digits)."""
+    hold the state of one and zero digits).  Each launch also counts its
+    (nrows, m, levels, window, CH, shape) in `.shapes`."""
     nrows = u.shape[0]
     if digits.dim() != 3 or digits.shape[1] != nrows:
         raise ValueError(f"rns_he_matvec: digits {tuple(digits.shape)} vs "
@@ -296,6 +300,7 @@ def rns_he_matvec_tiled(u: torch.Tensor, digits: torch.Tensor,
              torch.cuda.current_stream(u.device).cuda_stream)
     build.check(err, "rns_he_matvec")
     rns_he_matvec_tiled.launches += 1
+    rns_he_matvec_tiled.shapes[(nrows, m, levels, window, ctx.CH, shape)] += 1
     return out
 
 
@@ -419,7 +424,9 @@ def he_matvec_tiled(cts: torch.Tensor, digits: torch.Tensor, mod: Modulus,
 
 
 rns_mont_exp_tiled.launches = 0
+rns_mont_exp_tiled.shapes = collections.Counter()
 rns_he_matvec_tiled.launches = 0
+rns_he_matvec_tiled.shapes = collections.Counter()
 rns_fixed_base_tiled.launches = 0
 mont_exp_tiled.launches = 0
 he_matvec_tiled.launches = 0
