@@ -39,7 +39,18 @@ keys) through `repro_torch.core.trainer.train_vfl` three ways:
 
 each against the mock backend (losses, weights, per-tag bytes and rounds
 bit for bit), and checks that every kernel of each path launched (K1
-exactly 162 times on the RNS path and 150 on path B).  Then the paper's
+exactly 162 times on the RNS path and 150 on path B).  Then the
+concurrent-leg schedule (`phase_pipelined`): the same configuration
+through `runtime.PipelinedTransport` at k = 2 and 4 (B1's columns
+copied to B2, B3, as Figure 2 does; at k = 4 also with barrier sweeps
+and with 2 workers), each equal to the `LocalTransport` run of its k on
+losses, weights and bytes, with K1–K3 launched exactly as often and
+K4–K8 not, fewer rounds at k = 4, K1–K3 held against their plain
+versions at every shape those runs launched; 64 rows encrypted with
+pooled noise equal to the synchronous path and decrypted right; K1
+called from 8 threads and every launch counted, with the host's cost of
+a call from 1 and 8 threads; Figure 2's smoke rows on the card.  Then
+the paper's
 evaluation path (`phase_paper`): Table 1 (credit-default, batch 2048)
 and Table 2 (dvisits, Poisson, batch 512) at paper scale through
 `repro_torch.bench.table1_lr.run` and `table2_pr.run`, whose
@@ -72,7 +83,12 @@ the two on one card.
 
     python3 chip_smoke.py --paper    # only the paper's evaluation path
 
-runs only `phase_paper`.
+runs only `phase_paper`, and
+
+    python3 chip_smoke.py --pipelined
+
+only `phase_pipelined`.  Device time is the sum over the profiler's
+device events (a torch op's own event repeats its kernels' time).
 """
 from __future__ import annotations
 
@@ -885,11 +901,16 @@ def profiled_run(label: str, run) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         res = run()
         torch.cuda.synchronize()
+    from torch.autograd import DeviceType
     dev_us = {k: 0.0 for k in SYMBOLS}
-    total_dev_us = 0.0
+    total_dev_us = summed_us = 0.0
     events = prof.key_averages()
     for ev in events:
         t = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
+        summed_us += t
+        if ev.device_type == DeviceType.CPU:
+            # a torch op's self device time is its kernels' again
+            continue
         total_dev_us += t
         for k, name in SYMBOLS.items():
             if name in ev.key:
@@ -902,7 +923,9 @@ def profiled_run(label: str, run) -> dict:
     log(f"[profile {label}] {res.runtime_s / res.n_iter:.3f} s/iteration "
         f"under the profiler; device time of all CUDA work "
         f"{total_dev_us / 1e3:.1f} ms = {100 * share:.1f}% of the "
-        f"iterations' host time")
+        f"iterations' host time (device events only; the sum over all "
+        f"events, {summed_us / 1e3:.1f} ms, counts a torch op's kernels "
+        f"twice)")
     log(f"[profile {label}] device ms by kernel " + json.dumps(
         {k: round(v / 1e3, 3) for k, v in dev_us.items() if v}))
     log(f"[profile {label}] top device ops (ms, calls): " + "; ".join(
@@ -1063,6 +1086,233 @@ def phase_path_b(results, mock):
     results["_path_b"] = dict(s_per_iter=res.runtime_s / ITERS, wall_s=wall,
                               peak_bytes=peak, table_build_s=build_s,
                               table_load_s=load_s, launches=launches, **prof)
+
+
+# ---------------------------------------------------------------------------
+# the concurrent-leg schedule: PipelinedTransport at Table 1 width
+# ---------------------------------------------------------------------------
+
+def fig2_parties(k: int):
+    """Table 1's parties in Fig. 2's layout: C, B1, and B1's 12 columns
+    copied to B2…B(k-1) (`vertical.replicate_provider`)."""
+    from repro_torch.core.trainer import PartyData
+    from repro_torch.data import vertical
+    parties, y = table1_parties()
+    parts = vertical.replicate_provider([p.X for p in parties], k)
+    names = ["C"] + [f"B{i}" for i in range(1, k)]
+    return [PartyData(nm, X) for nm, X in zip(names, parts)], y
+
+
+def require_same_model(label: str, res, ref):
+    """`res` equal to `ref` on losses, weights, bytes by tag and
+    iterations (rounds are the schedule's own), finite."""
+    import numpy as np
+    if res.losses != ref.losses:
+        fail(f"{label}: losses {res.losses} != {ref.losses}")
+    for name in ref.weights:
+        if not np.array_equal(res.weights[name], ref.weights[name]):
+            fail(f"{label}: weights of {name} differ")
+    if dict(res.meter.by_tag) != dict(ref.meter.by_tag):
+        fail(f"{label}: bytes by tag differ")
+    if res.n_iter != ref.n_iter or not all(np.isfinite(res.losses)):
+        fail(f"{label}: bad result: losses {res.losses}, n_iter "
+             f"{res.n_iter}")
+
+
+def pooled_noise_check(priv):
+    """64 rows encrypted with pooled noise on the card: the pool's batch
+    is consumed, the ciphertexts equal the synchronous path's from the
+    same draws, and they decrypt to the plaintext."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    from repro_torch.core import protocols
+    from repro_torch.crypto import engine, ring
+    eng = engine.make("cuda")
+    vals = np.random.default_rng(8).integers(0, 1 << 64, size=64,
+                                             dtype=np.uint64)
+    d = ring.from_numpy_u64(vals, "cuda")
+    sync = protocols.PaillierBackend({"C": priv}, np.random.default_rng(4),
+                                     eng, device="cuda")
+    pooled = protocols.PaillierBackend({"C": priv}, np.random.default_rng(4),
+                                       eng, device="cuda")
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        pooled.attach_noise_executor(ex)
+        pooled.prefetch_noise("C", 64)
+        stream = ex.submit(
+            lambda: torch.cuda.current_stream().cuda_stream).result()
+        c = pooled.encrypt_share("C", d)
+        if pooled._noise["C"]:
+            fail("pipelined: the prefetched noise batch was not consumed")
+    c_sync = sync.encrypt_share("C", d)
+    if not torch.equal(c, c_sync):
+        fail("pipelined: pooled-noise ciphertexts differ from the "
+             "synchronous path's")
+    got = ring.to_numpy_u64(pooled.decrypt_to_r64("C", c))
+    if not np.array_equal(got, vals):
+        fail("pipelined: pooled-noise ciphertexts do not decrypt to their "
+             "plaintext")
+    main = torch.cuda.current_stream().cuda_stream
+    log(f"[pipelined] 64 rows encrypted with pooled noise on the card: "
+        f"equal to the synchronous path, decrypt right; a pool thread "
+        f"launches on stream {stream:#x}, the main thread on {main:#x} "
+        f"(default {torch.cuda.default_stream().cuda_stream:#x})")
+    if stream != main:
+        fail("pipelined: a pool thread launches on another stream than the "
+             "main thread")
+
+
+def threaded_count_check():
+    """K1 called from 8 threads at once: every output equal to the plain
+    version, and the launch count exact.  Then the host's cost of a call
+    (K1, and one small torch op) from 1 and from 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.bench import round_check
+    from repro_torch.kernels import montmul
+    ctxs = round_check.k1_contexts()
+    ctx = ctxs[max(ctxs)]
+    gen = np.random.default_rng(5)
+    xs = [_random_states(ctx, 12, gen, "cuda") for _ in range(8)]
+    want = [montmul.plain(x, x, ctx) for x in xs]
+    reps = 200
+    barrier = threading.Barrier(8)
+
+    def launches(i):
+        barrier.wait()
+        return [montmul.rns_montmul_tiled(xs[i], xs[i], ctx)
+                for _ in range(reps)]
+    reset_counts()
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        outs = list(ex.map(launches, range(8)))
+    torch.cuda.synchronize()
+    n = montmul.rns_montmul_tiled.launches
+    if n != 8 * reps or sum(montmul.rns_montmul_tiled.shapes.values()) \
+            != 8 * reps:
+        fail(f"pipelined: K1 from 8 threads counted {n} launches, "
+             f"expected {8 * reps}")
+    for i, out in enumerate(outs):
+        if not all(torch.equal(o, want[i]) for o in out):
+            fail("pipelined: K1 launched from 8 threads differs from the "
+                 "plain version")
+    log(f"[pipelined] K1 from 8 threads: {n} launches counted of "
+        f"{8 * reps}, every output equal to the plain version")
+
+    def us_per_call(fn, threads, total=8000):
+        """Host µs a call of `fn` when `threads` threads share `total`
+        calls (the device's queue drained before and after)."""
+        go = threading.Barrier(threads)
+
+        def worker(_):
+            go.wait()
+            for _ in range(total // threads):
+                fn()
+        with ThreadPoolExecutor(max_workers=threads) as ex:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            list(ex.map(worker, range(threads)))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e6 / total
+    small = _random_states(ctxs[min(ctxs)], 12, gen, "cuda")
+    glue = torch.arange(12, dtype=torch.int64, device="cuda")
+    rates = {}
+    for name, fn in (("K1 (12, 85)", lambda: montmul.rns_montmul_tiled(
+            small, small, ctxs[min(ctxs)])),
+            ("torch bitwise_and (12,)", lambda: torch.bitwise_and(glue,
+                                                                  4095))):
+        rates[name] = [us_per_call(fn, t) for t in (1, 8, 1, 8)]
+        log(f"[pipelined] host µs a call of {name}, 8000 calls from 1 / 8 "
+            f"/ 1 / 8 threads: " + " / ".join(f"{r:.2f}"
+                                              for r in rates[name]))
+    return rates
+
+
+def phase_pipelined(results, priv):
+    """Table 1's configuration through `PipelinedTransport` at k = 2 and
+    4 (and with `concurrent_legs=False` at k = 4), each equal to the
+    LocalTransport run of the same k on losses, weights and bytes, with
+    K1–K3 launched as often and K4–K8 not, fewer rounds at k = 4; K1–K3
+    held to their plain versions at every shape the pipelined runs
+    launched; pooled noise on the card; Fig. 2's smoke rows on the
+    card; host s/iteration and device time of both schedules."""
+    import dataclasses
+    from repro_torch.bench import fig2_scaling
+    from repro_torch.core.trainer import VFLConfig, train_vfl
+    from repro_torch.runtime import LocalTransport, PipelinedTransport
+    rates = threaded_count_check()
+    pooled_noise_check(priv)
+    cfg = VFLConfig(he_backend="paillier", **table1_kw())
+    shapes = {k: {} for k in RNS_PATH}
+    out = {}
+    for k in (2, 4):
+        parties, y = fig2_parties(k)
+        runs = [("local", LocalTransport), ("pipelined", PipelinedTransport)]
+        if k == 4:
+            runs += [("sweeps", lambda: PipelinedTransport(
+                concurrent_legs=False)),
+                ("2 workers", lambda: PipelinedTransport(max_workers=2))]
+        got = {}
+        for name, make in runs:
+            res, launches, wall, peak = counted_run(
+                lambda: train_vfl(parties, y, cfg, transport=make()))
+            label = f"pipelined k={k} {name}"
+            if name == "local":
+                ref, ref_launches = res, launches
+            else:
+                require_same_model(label, res, ref)
+                require(label, launches, positive=RNS_PATH,
+                        zero=OFF_RNS_PATH,
+                        exact={x: ref_launches[x] for x in RNS_PATH})
+                if k > 2 and not res.rounds < ref.rounds:
+                    fail(f"{label}: {res.rounds} rounds, not fewer than "
+                         f"the sequential schedule's {ref.rounds}")
+                for x, c in path_shapes().items():
+                    for sh, n in c.items():
+                        shapes[x][sh] = shapes[x].get(sh, 0) + n
+            got[name] = dict(s_per_iter=res.runtime_s / res.n_iter,
+                             wall_s=wall, rounds=res.rounds,
+                             peak_bytes=peak, launches=launches)
+            log(f"[{label}] {res.runtime_s / res.n_iter:.4f} s/iteration "
+                f"(host clock, iterations only), {wall:.2f} s wall; rounds "
+                f"{res.rounds}; peak device memory {peak / 2**20:.1f} MiB; "
+                f"launches {launches}")
+        # profiled over one iteration: the profiler's tables of a k = 4
+        # run take a minute to build per 3 iterations
+        one = dataclasses.replace(cfg, max_iter=1)
+        for name, make in runs[:2]:
+            prof = profiled_run(f"pipelined k={k} {name}", lambda: train_vfl(
+                parties, y, one, transport=make()))
+            got[name].update(device_ms_per_iter=prof["all_device_ms"]
+                             / prof["n_iter"], device_share=prof[
+                                 "device_share"], device_ms=prof["device_ms"])
+        log(f"[pipelined] k={k}: equal to the sequential run (losses, "
+            f"weights, bytes by tag; K1-K3 launches "
+            f"{[ref_launches[x] for x in RNS_PATH]}); s/iteration local "
+            f"{got['local']['s_per_iter']:.4f}, pipelined "
+            f"{got['pipelined']['s_per_iter']:.4f}; device ms an iteration "
+            f"local {got['local']['device_ms_per_iter']:.2f}, pipelined "
+            f"{got['pipelined']['device_ms_per_iter']:.2f}; rounds "
+            f"{ {n: g['rounds'] for n, g in got.items()} }")
+        out[f"k{k}"] = got
+    held = hold_at_shapes("pipelined", shapes)
+    t0 = time.perf_counter()
+    rep = fig2_scaling.run(device="cuda", **fig2_scaling.SMOKE)
+    rows = rep["rows"]
+    if len(rows) != 4 or rep["linear_fits"][0]["max_residual_mb"] != 0.0:
+        fail(f"pipelined: fig2 smoke rows {rows}, fits "
+             f"{rep['linear_fits']}")
+    for k in (2, 4):
+        comm = {r["comm_mb"] for r in rows if r["parties"] == k}
+        if len(comm) != 1:
+            fail(f"pipelined: fig2 comm differs between schedules at k={k}")
+    log(f"[pipelined] fig2 smoke on the card ({time.perf_counter() - t0:.1f}"
+        f" s): " + json.dumps(rows) + " fits " + json.dumps(
+            rep["linear_fits"]))
+    results["_pipelined"] = dict(out, held_at_path_shapes=held,
+                                 fig2_smoke=rep["concurrency"],
+                                 host_us_per_call=rates)
 
 
 # ---------------------------------------------------------------------------
@@ -1354,6 +1604,9 @@ def main(argv=None):
     ap.add_argument("--paper", action="store_true",
                     help="only run the paper's evaluation path (Table 1 "
                     "and Table 2 at paper scale, the triple preprocessing)")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="only run the concurrent-leg schedule's phase "
+                    "(PipelinedTransport at Table 1 width, k = 2 and 4)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1389,6 +1642,12 @@ def main(argv=None):
         log(f"[done] paths only, {time.perf_counter() - t_start:.1f} s; "
             f"card {card}")
         return
+    if args.pipelined:
+        phase_pipelined(results, priv)
+        log(f"[done] pipelined phase only, "
+            f"{time.perf_counter() - t_start:.1f} s; card {card}; summary "
+            f"{json.dumps(results['_pipelined'])}")
+        return
     if args.paper:
         phase_paper(results, priv)
         log(f"[done] paper path only, {time.perf_counter() - t_start:.1f} "
@@ -1410,6 +1669,7 @@ def main(argv=None):
     phase_train(results, mock)
     phase_path_a(results, mock)
     phase_path_b(results, mock)
+    phase_pipelined(results, priv)
     phase_paper(results, priv)
     phase_k1_shapes(results)
     phase_probe(results)

@@ -1,11 +1,13 @@
 """Benchmark entry point of the port: the ``kernels``, ``table1``,
-``table2`` and ``fig1`` modes of the reference's `benchmarks/run.py`.
+``table2``, ``fig1`` and ``fig2`` modes of the reference's
+`benchmarks/run.py`.
 
     python -m repro_torch.bench.run --only kernels [--smoke]
     python -m repro_torch.bench.run --guards
     python -m repro_torch.bench.run --only table1 [--paper]
     python -m repro_torch.bench.run --only table2 [--paper]
     python -m repro_torch.bench.run --only fig1
+    python -m repro_torch.bench.run --only fig2 [--paper]
     python -m repro_torch.bench.run --only table1 --device cpu --n 180 \
         --iters 3 --key-bits 192          # a check without the card
 
@@ -20,7 +22,11 @@ without measuring.  ``table1`` / ``table2``: the paper's rows
 on real Paillier and held equal to the mock row; with ``--paper`` on
 the card they are written, under the same header, to
 ``BENCH_cuda_table1.json`` / ``BENCH_cuda_table2.json``.  ``fig1``: the
-loss curves' gap to the centralised oracle (writes nothing).
+loss curves' gap to the centralised oracle (writes nothing).  ``fig2``:
+the k-scaling rows of `fig2_scaling.run` (mock, local and pipelined
+schedules; a small run without ``--paper``); with ``--paper`` on the
+card its full run, the Paillier rows at 144-bit keys and at
+``--key-bits``, is written to ``BENCH_cuda_scaling.json``.
 
 One difference from the reference: a guard violation is reported after
 the file is written, so a violation measured on the card is recorded,
@@ -44,6 +50,7 @@ BENCH_PATH = REPO_ROOT / "BENCH_cuda_crypto.json"
 SCHEMA = "bench_cuda_crypto/v1"
 TABLE_PATHS = {"table1": REPO_ROOT / "BENCH_cuda_table1.json",
                "table2": REPO_ROOT / "BENCH_cuda_table2.json"}
+SCALING_PATH = REPO_ROOT / "BENCH_cuda_scaling.json"
 
 
 def _csv(name: str, us: float, derived: str = "") -> None:
@@ -154,10 +161,44 @@ def bench_fig1(device: str, n: int | None = None,
     return curves
 
 
+def bench_fig2(paper: bool, device: str, key_bits: int = 1024) -> dict:
+    """The k-scaling rows, printed; at ``--paper`` the full run, written
+    to `SCALING_PATH` on the card."""
+    from repro_torch.bench import fig2_scaling
+    if paper:
+        bits = tuple(dict.fromkeys((fig2_scaling.PAILLIER_KEY_BITS,
+                                    key_bits)))
+        report = fig2_scaling.run(device=device, key_bits=bits)
+    else:
+        report = fig2_scaling.run(ks=(2, 4, 8), glms=("logistic",),
+                                  iters=3, batch=128, n_samples=1000,
+                                  smoke=True, device=device)
+    for r in report["rows"]:
+        _csv(f"fig2.{r['glm']}.k{r['parties']}.{r['transport']}",
+             r["per_iter_s"] * 1e6,
+             f"comm_mb={r['comm_mb']};he={r['he_backend']};"
+             f"key_bits={r['key_bits']};rounds_per_iter="
+             f"{r['rounds_per_iter']}")
+    for f in report["linear_fits"]:
+        _csv(f"fig2.linear_fit.{f['glm']}", 0.0,
+             f"slope_mb_per_party={f['slope_mb_per_party']};"
+             f"max_residual_mb={f['max_residual_mb']}")
+    print("# concurrency " + json.dumps(report["concurrency"]))
+    if paper and device == "cuda":
+        out = {**header(report["schema"]), **report}
+        SCALING_PATH.write_text(json.dumps(out, indent=1) + "\n")
+        print(f"# wrote {SCALING_PATH}")
+    else:
+        print(f"# {SCALING_PATH.name} is written only at --paper on the "
+              "card")
+    return report
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="kernels",
-                    choices=["kernels", "table1", "table2", "fig1"],
+                    choices=["kernels", "table1", "table2", "fig1",
+                             "fig2"],
                     help="which benchmark to run (default kernels)")
     ap.add_argument("--smoke", action="store_true",
                     help="kernels: tiny sizes; writes no file")
@@ -165,16 +206,18 @@ def main(argv=None) -> None:
                     help=f"validate the guard rows of {BENCH_PATH.name} "
                          "and exit (no measurement)")
     ap.add_argument("--paper", action="store_true",
-                    help="table1/table2: the paper-scale configuration")
+                    help="table1/table2: the paper-scale configuration; "
+                    "fig2: the full run")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="table1/table2/fig1: where shares and ciphertexts "
-                         "live")
+                    help="table1/table2/fig1/fig2: where shares and "
+                         "ciphertexts live")
     ap.add_argument("--n", type=int, default=None,
                     help="table1/table2/fig1: cut the sample count")
     ap.add_argument("--iters", type=int, default=None,
                     help="table1/table2/fig1: cut the iteration count")
     ap.add_argument("--key-bits", type=int, default=1024,
-                    help="table1/table2: Paillier key size of every row")
+                    help="table1/table2: Paillier key size of every row; "
+                    "fig2 --paper: the second key size of its Paillier rows")
     args = ap.parse_args(argv)
     if args.guards:
         check_committed_guards()
@@ -187,6 +230,8 @@ def main(argv=None) -> None:
         bench_kernels(smoke=args.smoke)
     elif args.only == "fig1":
         bench_fig1(args.device, args.n, args.iters)
+    elif args.only == "fig2":
+        bench_fig2(args.paper, args.device, args.key_bits)
     else:
         bench_table(args.only, args.paper, args.device, args.n, args.iters,
                     args.key_bits)

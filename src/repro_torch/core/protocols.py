@@ -17,11 +17,12 @@ key owner and unmasked locally.
 Ring shares are `R64` tensors and ciphertexts int64 limb tensors, both
 on the backend's device.  Encryption noise is r^n, or h^ρ from a
 party's fixed-base table (`crypto.fixed_base`) when one is attached.
-The noise prefetch pool of the reference waits for a later slice.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -85,8 +86,17 @@ def he_matvec(pub: paillier.PublicKey, cts: torch.Tensor, exps: np.ndarray,
 class PaillierBackend:
     """Real Paillier.  Each party owns a keypair; every hot loop goes
     through `engine` on `device`.  Encryption randomness is drawn from
-    the shared protocol stream `rng` at the point of use, as in the
-    reference's synchronous path.
+    the shared protocol stream `rng`.
+
+    Noise pool: the encryption noise is data-independent, so once
+    `attach_noise_executor` hands the backend a thread pool (the
+    scheduler wires the PipelinedTransport's), `prefetch_noise` draws
+    the randomness on the calling thread (the protocol stream is
+    consumed deterministically) and runs the exponentiation on the pool,
+    overlapped with the protocol legs.  Consumers match pooled batches
+    by (party, count); a miss falls back to the synchronous path.
+    Noise never reaches a decrypted value, so the trained model is
+    bit-identical with or without the pool.
 
     Fixed-base tables: `attach_table` (or a `PrivateKey.noise_table`
     from `keygen(table_path=…)`, picked up here) switches a party's
@@ -105,9 +115,17 @@ class PaillierBackend:
         self.tables: dict[str, fixed_base.FixedBaseTable] = {
             party: key.noise_table for party, key in keys.items()
             if getattr(key, "noise_table", None) is not None}
+        self._noise: dict[str, collections.deque] = collections.defaultdict(
+            collections.deque)
+        self._noise_lock = threading.Lock()
+        self._noise_exec = None
 
     def key_bits(self, party: str) -> int:
         return self.keys[party].pub.key_bits
+
+    # -- noise pool ---------------------------------------------------------
+    def attach_noise_executor(self, executor) -> None:
+        self._noise_exec = executor
 
     def attach_table(self, party: str, table) -> None:
         """Route `party`'s encryption noise through a persistent fixed-
@@ -136,10 +154,41 @@ class PaillierBackend:
         raw = paillier.raw_noise(pub, count, self.rng)
         return (paillier.noise_to_mont, pub, raw, self.engine, self.device)
 
+    def prefetch_noise(self, party: str, count: int) -> None:
+        """Schedule `count` fresh encryption noises under `party`'s key."""
+        if self._noise_exec is None or count <= 0:
+            return
+        fn, *args = self._noise_job(party, count)
+        fut = self._noise_exec.submit(fn, *args)
+        with self._noise_lock:
+            self._noise[party].append((count, fut))
+
+    def _pooled_noise(self, party: str, count: int):
+        """Pop a prefetched batch of exactly `count` noises, or None."""
+        with self._noise_lock:
+            q = self._noise[party]
+            for i, (c, fut) in enumerate(q):
+                if c == count:
+                    del q[i]
+                    break
+            else:
+                return None
+        return fut.result()
+
+    def discard_pooled_noise(self) -> None:
+        """Drop unconsumed prefetched batches (the scheduler calls this
+        at the end of each iteration, so a prefetch/consumption mismatch
+        cannot grow the pool)."""
+        with self._noise_lock:
+            self._noise.clear()
+
     def _encrypt(self, pub, m: torch.Tensor, party: str,
                  count: int) -> torch.Tensor:
-        fn, *args = self._noise_job(party, count)
-        rn = fn(*args).reshape(tuple(m.shape[:-1]) + (pub.Ln2,))
+        rn = self._pooled_noise(party, count)
+        if rn is None:                          # pool miss: compute inline
+            fn, *args = self._noise_job(party, count)
+            rn = fn(*args)
+        rn = rn.reshape(tuple(m.shape[:-1]) + (pub.Ln2,))
         return paillier.encrypt_with_noise(pub, m, rn, self.engine)
 
     # -- protocol ops -------------------------------------------------------
@@ -276,3 +325,40 @@ def decrypt_offset_corrected(backend, key_owner: str, enc_masked,
     remove the OFF·Σ⟨d⟩ exponent-lift term."""
     w = backend.decrypt_to_r64(key_owner, enc_masked)
     return ring.sub(w, offset_correction(d_own, width))
+
+
+# --- whole-protocol compositions (the simulation evaluates both parties'
+# local steps in one call; tests use these) ------------------------------
+
+def secure_gradient_cp(backend, *, p0: str, p1: str, feats: EncodedFeatures,
+                       d_self: R64, d_other_ct, d_other_share: R64,
+                       mask_bound_bits: int,
+                       rng: np.random.Generator) -> R64:
+    """Protocol 3 with P0 a computing party: `d_self` is ⟨d⟩_{p0},
+    `d_other_ct` [[⟨d⟩_{p1}]] under p1's key, `d_other_share` ⟨d⟩_{p1}
+    (for p1's local step).  Returns g_{p0} as ring fixed point with
+    fx + f fractional bits."""
+    g_self = local_grad_share(feats, d_self)
+    enc_masked, Rr = masked_matvec(backend, p1, d_other_ct, feats,
+                                   mask_bound_bits, rng)
+    w = decrypt_offset_corrected(backend, p1, enc_masked, d_other_share,
+                                 feats.width)
+    return ring.sub(ring.add(g_self, w), Rr)
+
+
+def secure_gradient_noncp(backend, *, party: str, cps: tuple[str, str],
+                          feats: EncodedFeatures, d_cts: dict,
+                          d_shares: dict, mask_bound_bits: int,
+                          rng: np.random.Generator) -> R64:
+    """Algorithm 1 lines 17–21: a non-computing party's gradient under
+    both CPs' keys, g_p = Σ_cp (dec_cp − R_cp).  `d_cts` maps each CP to
+    [[⟨d⟩_cp]], `d_shares` to ⟨d⟩_cp (for its local step); `party`
+    names the caller (the arithmetic does not read it)."""
+    total = ring.zeros((feats.exps.shape[1],), backend.device)
+    for cp in cps:
+        enc_masked, Rr = masked_matvec(backend, cp, d_cts[cp], feats,
+                                       mask_bound_bits, rng)
+        w = decrypt_offset_corrected(backend, cp, enc_masked, d_shares[cp],
+                                     feats.width)
+        total = ring.add(total, ring.sub(w, Rr))
+    return total

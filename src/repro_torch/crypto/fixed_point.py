@@ -28,6 +28,15 @@ def decode(a: R64, f: int = DEFAULT_FRAC_BITS) -> np.ndarray:
     return ring.to_signed_f64(a, f)
 
 
+def encode_pub_int(x, f: int = DEFAULT_FRAC_BITS) -> np.ndarray:
+    """Public floats -> signed int32 fixed-point multipliers (for
+    public-by-share products where the multiplier fits 32 bits)."""
+    v = np.rint(np.asarray(x, np.float64) * (1 << f))
+    if np.any(np.abs(v) >= 2 ** 31):
+        raise ValueError("public fixed-point multiplier exceeds int32")
+    return v.astype(np.int32)
+
+
 def r64_to_limbs(a: R64, L: int) -> torch.Tensor:
     """Ring residue (unsigned 64-bit value) -> L-limb vector (L >= 6)."""
     lo, hi = a.lo, a.hi

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -43,6 +44,7 @@ from repro_torch.crypto import bigint
 from repro_torch.crypto.bigint import LIMB_BITS, Modulus, nlimbs
 
 CHANNEL_BITS = 13        # residue channels are primes in (2^11, 2^13)
+_TABLES_LOCK = threading.Lock()
 _MAX_DOT_K = (1 << 24) // (127 * 127)   # 1040 channels (reference bound)
 
 
@@ -95,38 +97,46 @@ class RNSContext:
     _dev: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def tables(self, device) -> dict:
-        """The context's tables as tensors on `device` (built once)."""
+        """The context's tables as tensors on `device`, built once: a lock
+        keeps concurrent first calls (pool threads) from building twice."""
         key = str(torch.device(device))
-        if key not in self._dev:
-            def t(a, dtype):
-                return torch.as_tensor(np.asarray(a).astype(np.int64),
-                                       device=device).to(dtype)
-            kA, kB, CH = self.kA, self.kB, self.CH
-            mods = t(self.all_mods, torch.int64)
-            self._dev[key] = {
-                "mods": mods,
-                "a_mods": mods[:kA], "b_mods": mods[kA:kA + kB],
-                "r_mod": mods[CH - 1:],
-                "ar_mods": torch.cat([mods[:kA], mods[CH - 1:]]),
-                "br_mods": torch.cat([mods[kA:kA + kB], mods[CH - 1:]]),
-                "vecs": t(self.vecs, torch.int64),
-                "t_b": t(self.t_b, torch.float64),
-                "t_a": t(self.t_a, torch.float64),
-                # the CUDA round's operands (csrc/rns_common.cuh)
-                "chan32": t(round_constants(self), torch.int32).contiguous(),
-                "tb_mma": torch.as_tensor(mma_operand(ext1_matrix(self)),
-                                          device=device).contiguous(),
-                "ta_mma": torch.as_tensor(mma_operand(ext2_matrix(self)),
-                                          device=device).contiguous(),
-                "pow_mat": t(self.pow_mat, torch.float64),
-                "pow_scaled": t(self.pow_scaled, torch.float64),
-                "limb_a": t(self.limb_a, torch.float64),
-                "a_limbs": t(self.a_limbs, torch.int64),
-                "nj": t(self.nj, torch.int64),
-                "one": t(self.consts["one"], torch.int32),
-                "exit": t(self.consts["exit"], torch.int32),
-            }
-        return self._dev[key]
+        d = self._dev.get(key)
+        if d is not None:
+            return d
+        with _TABLES_LOCK:
+            if key not in self._dev:
+                self._dev[key] = self._build_tables(device)
+            return self._dev[key]
+
+    def _build_tables(self, device) -> dict:
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a).astype(np.int64),
+                                   device=device).to(dtype)
+        kA, kB, CH = self.kA, self.kB, self.CH
+        mods = t(self.all_mods, torch.int64)
+        return {
+            "mods": mods,
+            "a_mods": mods[:kA], "b_mods": mods[kA:kA + kB],
+            "r_mod": mods[CH - 1:],
+            "ar_mods": torch.cat([mods[:kA], mods[CH - 1:]]),
+            "br_mods": torch.cat([mods[kA:kA + kB], mods[CH - 1:]]),
+            "vecs": t(self.vecs, torch.int64),
+            "t_b": t(self.t_b, torch.float64),
+            "t_a": t(self.t_a, torch.float64),
+            # the CUDA round's operands (csrc/rns_common.cuh)
+            "chan32": t(round_constants(self), torch.int32).contiguous(),
+            "tb_mma": torch.as_tensor(mma_operand(ext1_matrix(self)),
+                                      device=device).contiguous(),
+            "ta_mma": torch.as_tensor(mma_operand(ext2_matrix(self)),
+                                      device=device).contiguous(),
+            "pow_mat": t(self.pow_mat, torch.float64),
+            "pow_scaled": t(self.pow_scaled, torch.float64),
+            "limb_a": t(self.limb_a, torch.float64),
+            "a_limbs": t(self.a_limbs, torch.int64),
+            "nj": t(self.nj, torch.int64),
+            "one": t(self.consts["one"], torch.int32),
+            "exit": t(self.consts["exit"], torch.int32),
+        }
 
 
 # ---------------------------------------------------------------------------

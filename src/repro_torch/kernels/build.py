@@ -7,16 +7,20 @@ go to ``build/cuda/`` at the root of the checkout (``REPRO_TORCH_BUILD``
 overrides it) under a name that carries a hash of the sources, so an
 edited source is never served by a stale library.  Loaded with
 `ctypes`; every pointer and the stream are ``c_void_p``.
+
+The pipelined schedule launches kernels from pool threads, so the first
+build is behind a lock and the wrappers count launches with
+`count_launch`, under another.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -93,9 +97,33 @@ def _digest() -> str:
     return h.hexdigest()[:12]
 
 
-@functools.lru_cache(maxsize=1)
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+_built: Built | None = None
+
+
 def load() -> Built:
-    """Compile (if needed) and load every kernel library."""
+    """Compile (if needed) and load every kernel library, once.
+    Concurrent first calls wait for one build: unguarded, each would run
+    nvcc into the same temporary paths."""
+    global _built
+    if _built is None:
+        with _LOAD_LOCK:
+            if _built is None:
+                _built = _build_and_load()
+    return _built
+
+
+def count_launch(wrapper, shape=None) -> None:
+    """One more launch of `wrapper` (its `.launches`, and `.shapes[shape]`
+    when a shape is given), atomic across threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if shape is not None:
+            wrapper.shapes[shape] += 1
+
+
+def _build_and_load() -> Built:
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     tag = _digest()

@@ -248,8 +248,8 @@ def rns_mont_exp_tiled(u: torch.Tensor, bits: torch.Tensor,
              out.data_ptr(), batch, *launch_args(ctx, u.device),
              torch.cuda.current_stream(u.device).cuda_stream)
     build.check(err, "rns_mont_exp")
-    rns_mont_exp_tiled.launches += 1
-    rns_mont_exp_tiled.shapes[(batch, ctx.CH, nbits, bits.dim() == 1)] += 1
+    build.count_launch(rns_mont_exp_tiled,
+                       (batch, ctx.CH, nbits, bits.dim() == 1))
     return out
 
 
@@ -299,8 +299,8 @@ def rns_he_matvec_tiled(u: torch.Tensor, digits: torch.Tensor,
              *launch_args(ctx, u.device),
              torch.cuda.current_stream(u.device).cuda_stream)
     build.check(err, "rns_he_matvec")
-    rns_he_matvec_tiled.launches += 1
-    rns_he_matvec_tiled.shapes[(nrows, m, levels, window, ctx.CH, shape)] += 1
+    build.count_launch(rns_he_matvec_tiled,
+                       (nrows, m, levels, window, ctx.CH, shape))
     return out
 
 
@@ -355,7 +355,7 @@ def rns_fixed_base_tiled(table: torch.Tensor, digits: torch.Tensor,
              *launch_args(ctx, table.device),
              torch.cuda.current_stream(table.device).cuda_stream)
     build.check(err, "rns_fixed_base")
-    rns_fixed_base_tiled.launches += 1
+    build.count_launch(rns_fixed_base_tiled)
     return out
 
 
@@ -381,7 +381,7 @@ def mont_exp_tiled(base: torch.Tensor, bits: torch.Tensor,
              mod.L, wc.table.data_ptr(), wc.W, wc.n0inv,
              torch.cuda.current_stream(base.device).cuda_stream)
     build.check(err, "mont_exp")
-    mont_exp_tiled.launches += 1
+    build.count_launch(mont_exp_tiled)
     return out
 
 
@@ -419,7 +419,7 @@ def he_matvec_tiled(cts: torch.Tensor, digits: torch.Tensor, mod: Modulus,
              chunk, out.data_ptr(), mod.L, wc.table.data_ptr(), wc.W,
              wc.n0inv, torch.cuda.current_stream(cts.device).cuda_stream)
     build.check(err, "he_matvec")
-    he_matvec_tiled.launches += 1
+    build.count_launch(he_matvec_tiled)
     return out
 
 

@@ -181,8 +181,7 @@ def rns_montmul_tiled(x: torch.Tensor, y: torch.Tensor, ctx: RNSContext,
              shape.rows, int(shape.staged), *launch_args(ctx, x.device),
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "rns_montmul")
-    rns_montmul_tiled.launches += 1
-    rns_montmul_tiled.shapes[(batch, ctx.CH, y.dim() == 1)] += 1
+    build.count_launch(rns_montmul_tiled, (batch, ctx.CH, y.dim() == 1))
     return out
 
 
@@ -235,7 +234,7 @@ def montmul_tiled(a: torch.Tensor, b: torch.Tensor,
              wc.table.data_ptr(), wc.W, wc.n0inv,
              torch.cuda.current_stream(a.device).cuda_stream)
     build.check(err, "montmul")
-    montmul_tiled.launches += 1
+    build.count_launch(montmul_tiled)
     return out
 
 

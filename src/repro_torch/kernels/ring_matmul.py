@@ -158,7 +158,7 @@ def ring_matmul_tiled(a_hi: torch.Tensor, a_lo: torch.Tensor,
              M, K, N, shape.chunk, ws, ticket,
              torch.cuda.current_stream(a_hi.device).cuda_stream)
     build.check(err, "ring_matmul")
-    ring_matmul_tiled.launches += 1
+    build.count_launch(ring_matmul_tiled)
     return o_hi, o_lo
 
 

@@ -89,6 +89,10 @@ def mul(x: tuple[R64, R64], y: tuple[R64, R64],
     return party(0, t0), party(1, t1)
 
 
+def square(x: tuple[R64, R64], t0: TripleShares, t1: TripleShares):
+    return mul(x, x, t0, t1)
+
+
 def dot(x: tuple[R64, R64], y: tuple[R64, R64],
         t0: TripleShares, t1: TripleShares) -> tuple[R64, R64]:
     """Shares of sum_i x_i * y_i (triple shapes match x)."""

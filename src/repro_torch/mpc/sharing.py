@@ -23,3 +23,31 @@ def reconstruct(*shares: R64) -> R64:
     for s in shares[1:]:
         acc = ring.add(acc, s)
     return acc
+
+
+def share_zero(shape, key, *, device) -> tuple[R64, R64]:
+    """Shares of zero (used for re-randomisation)."""
+    hi, lo = prng.u32_pair(key, shape, device=device)
+    s0 = R64(hi, lo)
+    return s0, ring.neg(s0)
+
+
+# Share-level linear algebra: each party runs these locally on its share
+# (public-constant ops commute with reconstruction).
+
+def add_public(share_val: R64, pub: R64, party: int) -> R64:
+    """x + c where c is public: only party 0 adds the constant."""
+    return ring.add(share_val, pub) if party == 0 else share_val
+
+
+def mul_public_int(share_val: R64, k: int) -> R64:
+    return ring.mul_pub_int(share_val, k)
+
+
+def mul_public_elem(share_val: R64, pub: R64) -> R64:
+    """Elementwise multiply by a public ring tensor."""
+    return ring.mul(share_val, pub)
+
+
+def matmul_public(x_pub_int, share_val: R64) -> R64:
+    return ring.matmul(x_pub_int, share_val)

@@ -19,6 +19,13 @@ by the scheduler over the pair's states, exactly like `mpc.beaver`; the
 openings they would exchange are accounted as `beaver_open` messages by
 the transport's dealer.
 
+Threading: actors are not internally synchronised.  Concurrent
+transports (`PipelinedTransport.pump_async`) serialise each actor's
+`handle` calls with a per-party lock, so an actor only needs to be safe
+against other actors running concurrently, which it is: actors share no
+mutable state (the protocol stream is lock-wrapped by the transport, the
+HE backend's noise pool is locked inside).
+
 Value conventions: ring shares are `crypto.ring.R64` tensors on the
 backend's device (exact Z_2^64, fixed-point with `cfg.f` fractional bits
 unless noted); ciphertexts are Montgomery-domain mod-n² int64 limb

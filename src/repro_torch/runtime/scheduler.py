@@ -13,10 +13,17 @@ with the openings accounted through the transport's dealer.
 Training is a step-state machine: `step(state) -> state` advances one
 iteration over a `runtime.session.TrainState`, and `run()` folds `step`.
 Over `LocalTransport` this replays the reference's scheduler bit for
-bit: losses, weights, per-tag bytes and rounds.
+bit: losses, weights, per-tag bytes and rounds.  `PipelinedTransport`
+overlaps the data-independent Protocol-3 legs; with its
+`concurrent_legs` default the scheduler runs each party's Protocol-1
+share computation and every Protocol-3 masked-matvec/decrypt leg as an
+independent pool future (join barrier before Protocol 4), prefetches
+the iteration's encryption noise on the same pool, and stays
+bit-identical to the sequential schedule under fixed CP selection.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Sequence
 
@@ -91,7 +98,9 @@ class VFLScheduler:
       cfg: `core.trainer.VFLConfig` (its `device` places every ring
         share and ciphertext).
       backend: optional HE backend; built from `cfg` when None.
-      transport: optional `Transport` (`LocalTransport` when None).
+      transport: optional `Transport` (`LocalTransport` when None).  A
+        transport with an `executor` and `concurrent_legs` gets the
+        fan-out schedule.
     """
 
     def __init__(self, party_data: Sequence, y: np.ndarray, cfg,
@@ -126,11 +135,49 @@ class VFLScheduler:
         self.by_name = {p.name: p for p in self.parties}
         self.transport.bind(self.parties)
         self.n_total = self.parties[0].X.shape[0]
+        # noise prefetch: the transport's pool runs the data-independent
+        # noise exponentiations, overlapped with the protocol legs
+        ex = self.transport.executor
+        if ex is not None and hasattr(self.backend, "attach_noise_executor"):
+            self.backend.attach_noise_executor(ex)
         self._live_state: TrainState | None = None
 
     @property
     def label_party(self) -> LabelParty:
         return self.parties[0]
+
+    def _concurrent(self) -> bool:
+        """Whether protocol legs run as pool futures."""
+        tp = self.transport
+        return tp.executor is not None and tp.concurrent_legs
+
+    def _fanout(self, thunks):
+        """Evaluate independent protocol legs: as pool futures when the
+        transport allows concurrent legs, inline otherwise.  Results come
+        back in thunk order either way, so post order (hence delivery
+        order and the CPs' order-sensitive ez chaining) does not depend
+        on the schedule."""
+        if self._concurrent():
+            futs = [self.transport.executor.submit(t) for t in thunks]
+            return [f.result() for f in futs]
+        return [t() for t in thunks]
+
+    def _prefetch_noise(self, cps: tuple[str, str], nb: int) -> None:
+        """Schedule this iteration's encryption noise on the transport's
+        pool before Protocol 1: [[⟨d⟩]] under each CP's own key, and each
+        leg's mask encryptions.  The raw draws stay on this thread."""
+        be = self.backend
+        if not hasattr(be, "prefetch_noise"):
+            return
+        for cp in cps:
+            be.prefetch_noise(cp, nb)
+        for p in self.parties:
+            m = p.X.shape[1]
+            if p.name in cps:
+                be.prefetch_noise(cps[1] if p.name == cps[0] else cps[0], m)
+            else:
+                for cp in cps:
+                    be.prefetch_noise(cp, m)
 
     # -- one iteration ------------------------------------------------------
     def _select_cps(self) -> tuple[str, str]:
@@ -149,18 +196,26 @@ class VFLScheduler:
         for p in self.parties:
             p.begin_iteration(idx, cps, nb, self.mask_bound)
         cp0, cp1 = self.by_name[cps[0]], self.by_name[cps[1]]
+        if tp.overlaps_p3:
+            self._prefetch_noise(cps, nb)
 
         # -- Protocol 1: share intermediate results (posted in party order)
-        for i, p in enumerate(self.parties):
-            tp.post_all(p.share_z(subkeys[i]))
-        tp.post_all(self.label_party.share_y(subkeys[len(self.names)]))
+        for out in self._fanout(
+                [functools.partial(p.share_z, subkeys[i])
+                 for i, p in enumerate(self.parties)]
+                + [functools.partial(self.label_party.share_y,
+                                     subkeys[len(self.names)])]):
+            tp.post_all(out)
         tp.pump(order=list(cps))
         mdealer = TransportDealer(self.dealer, tp, cps[0], cps[1])
         ez = None
         if self.model.needs_exp:
-            for i, p in enumerate(self.parties):
-                tp.post_all(p.share_ez(subkeys[len(self.names) + 1 + i],
-                                       self.model.exp_sign))
+            for out in self._fanout(
+                    [functools.partial(p.share_ez,
+                                       subkeys[len(self.names) + 1 + i],
+                                       self.model.exp_sign)
+                     for i, p in enumerate(self.parties)]):
+                tp.post_all(out)
             tp.pump(order=list(cps))
             # e^{Σz_p} = Π e^{z_p}: chained Beaver products in roster order
             e0 = cp0.cp.ez_ordered(self.names)
@@ -176,13 +231,26 @@ class VFLScheduler:
         cp0.cp.d_self, cp1.cp.d_self = d0, d1
 
         # -- Protocol 3: secure gradients -----------------------------------
-        tp.post(cp0.announce_enc_d())
-        tp.post(cp1.announce_enc_d())
-        tp.pump(order=list(cps))
-        for p in noncps:
+        for enc in self._fanout([cp0.announce_enc_d, cp1.announce_enc_d]):
+            tp.post(enc)
+        if self._concurrent():
+            # every masked-matvec / decrypt / unmask leg an independent
+            # pool future; the ring accumulations it races commute
+            # exactly, and its return is the barrier before Protocol 4
             for cp in (cp0, cp1):
-                tp.post_all(cp.broadcast_enc_d([p]))
-        tp.pump(order=[*noncps, *cps])
+                tp.post_all(cp.broadcast_enc_d(noncps))
+            tp.pump_async(order=[*cps, *noncps])
+        elif tp.overlaps_p3:
+            # the broadcasts do not depend on the CP exchange: one sweep
+            for cp in (cp0, cp1):
+                tp.post_all(cp.broadcast_enc_d(noncps))
+            tp.pump(order=[*cps, *noncps])
+        else:
+            tp.pump(order=list(cps))
+            for p in noncps:
+                for cp in (cp0, cp1):
+                    tp.post_all(cp.broadcast_enc_d([p]))
+            tp.pump(order=[*noncps, *cps])
 
         # -- Protocol 4: secure loss ----------------------------------------
         l0, l1 = self.model.loss_shares(ctx)
@@ -193,6 +261,8 @@ class VFLScheduler:
         # -- stop flag ------------------------------------------------------
         tp.post_all(self.label_party.emit_flags(self.names[1:]))
         tp.pump()
+        if hasattr(self.backend, "discard_pooled_noise"):
+            self.backend.discard_pooled_noise()    # bound the pool to one iter
 
     # -- step-state machine -------------------------------------------------
     def init_state(self) -> TrainState:
@@ -202,6 +272,8 @@ class VFLScheduler:
 
     def _capture(self, it: int, order, cursor: int,
                  runtime_s: float) -> TrainState:
+        pool = sum(len(q) for q in getattr(self.backend, "_noise",
+                                           {}).values())
         shared_select = self.select_rng is self.rng
         state = TrainState(
             it=int(it),
@@ -216,7 +288,7 @@ class VFLScheduler:
             protocol_rng=self.rng.state(),
             select_rng=None if shared_select else self.select_rng.state(),
             dealer=self.dealer.state(),
-            noise_pool_fill=0,
+            noise_pool_fill=pool,
             meter_sends=session_lib.LedgerView(self.transport.meter.sends),
             rounds=int(self.transport.rounds),
             runtime_s=float(runtime_s))
@@ -236,6 +308,9 @@ class VFLScheduler:
         if state.select_rng is not None and self.select_rng is not self.rng:
             self.select_rng.set_state(state.select_rng)
         self.dealer.set_state(state.dealer)
+        if hasattr(self.backend, "discard_pooled_noise"):
+            # scratch: a resumed iteration prefetches its own batches
+            self.backend.discard_pooled_noise()
         self.transport.meter = rebuild_meter(state.meter_sends)
         self.transport.rounds = int(state.rounds)
         self._live_state = state

@@ -13,8 +13,8 @@ over it.  Field inventory (as in the reference):
   protocol_rng      mask/noise stream (`runtime.seeds` counted state)
   select_rng        dedicated CP-selection stream (None when shared)
   dealer            Beaver dealer key data + drawn counter
-  noise_pool_fill   prefetched-noise batches alive at capture (0 here:
-                    the noise pool waits for a later slice)
+  noise_pool_fill   prefetched-noise batches alive at capture (0 at
+                    every iteration boundary: the pool is discarded)
   meter_sends       per-tag byte ledger
   rounds / runtime_s  transport latency steps + accumulated wall clock
 

@@ -150,3 +150,51 @@ def test_sharing_and_dealer_triples():
     jz = jbeaver.mul(jxs, jys, *jt)
     tz = tbeaver.mul(txs, tys, *tt)
     assert same(jz[0], tz[0]) and same(jz[1], tz[1])
+
+
+def test_share_zero_and_public_share_ops():
+    """`share_zero` and the share-by-public ops, as in the reference."""
+    for shape in ((16,), (3, 5)):
+        js = jsharing.share_zero(shape, jax.random.key(1))
+        ts = tsharing.share_zero(shape, threefry.key(1), device="cpu")
+        assert same(js[0], ts[0]) and same(js[1], ts[1])
+        assert not tring.to_numpy_u64(tsharing.reconstruct(*ts)).any()
+    s, c = u64((7,)), u64((7,))
+    (js, ts), (jc, tc) = pair(s), pair(c)
+    for party in (0, 1):
+        assert same(jsharing.add_public(js, jc, party),
+                    tsharing.add_public(ts, tc, party))
+    k = (1 << 40) + 977
+    assert same(jsharing.mul_public_int(js, k),
+                tsharing.mul_public_int(ts, k))
+    assert same(jsharing.mul_public_elem(js, jc),
+                tsharing.mul_public_elem(ts, tc))
+    x = RNG.integers(-2 ** 31, 2 ** 31, size=(4, 7)).astype(np.int32)
+    m = u64((7, 2))
+    jm, tm = pair(m)
+    assert same(jsharing.matmul_public(jnp.asarray(x), jm),
+                tsharing.matmul_public(x, tm))
+
+
+def test_beaver_square():
+    x = u64((5,))
+    jx, tx = pair(x)
+    jxs = jsharing.share(jx, jax.random.key(21))
+    txs = tsharing.share(tx, threefry.key(21))
+    jt = jbeaver.DealerTripleSource(seed=4).elementwise((5,))
+    tt = tbeaver.DealerTripleSource(seed=4, device="cpu").elementwise((5,))
+    jz, tz = jbeaver.square(jxs, *jt), tbeaver.square(txs, *tt)
+    assert same(jz[0], tz[0]) and same(jz[1], tz[1])
+    assert same(jring.mul(jx, jx), tsharing.reconstruct(*tz))
+
+
+@pytest.mark.parametrize("f", [0, 14, 20])
+def test_encode_pub_int(f):
+    v = np.concatenate([RNG.normal(size=9) * 100, [0.5, -0.5, 1.5, -2.5]])
+    got = tfp.encode_pub_int(v, f)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, np.asarray(jfp.encode_pub_int(v, f)))
+    with pytest.raises(ValueError):
+        tfp.encode_pub_int([2.0 ** (31 - f)], f)
+    with pytest.raises(ValueError):
+        jfp.encode_pub_int([2.0 ** (31 - f)], f)
