@@ -87,8 +87,22 @@ runs only `phase_paper`, and
 
     python3 chip_smoke.py --pipelined
 
-only `phase_pipelined`.  Device time is the sum over the profiler's
-device events (a torch op's own event repeats its kernels' time).
+only `phase_pipelined`.  Then resumable sessions and the scoring
+service (`phase_serve`, also alone as ``python3 chip_smoke.py --serve``)
+at the same Table 1 configuration: two iterations, a save through
+`repro_torch.checkpoint.CheckpointManager`, a restore into a fresh
+scheduler whose third iteration equals the uninterrupted and the mock
+runs and launches K1 54, K2 8 and K3 2 times (K4–K8 none); v0 published
+from the resumed parties (each party's [[w]] under its own key: K2 and
+K1, held against their plain versions at the shapes launched and timed),
+the 9000 held-out rows scored through `repro_torch.serve.VFLScoringEngine`
+at max_batch 64 and 512, each prediction equal to the one-shot scorer,
+with p50/p99 latency and requests/s; a hot swap to the step-2 party
+checkpoint slices with requests queued (one version per batch, v1 equal
+to the one-shot scorer on the step-2 weights, K2 and K1 launched again),
+and the same swap from the service's worker thread.  Device time is the
+sum over the profiler's device events (a torch op's own event repeats
+its kernels' time).
 """
 from __future__ import annotations
 
@@ -892,16 +906,16 @@ def k1_launch_list(label: str) -> dict:
     return shapes
 
 
-def profiled_run(label: str, run) -> dict:
-    """`run()` under torch.profiler: device time by kernel, all device
-    time, and its share of the iterations' host time."""
+def profiled(run):
+    """`run()` under torch.profiler.  Returns (its result, device µs by
+    kernel, all device µs, the sum over all events, the events)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = run()
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
     dev_us = {k: 0.0 for k in SYMBOLS}
     total_dev_us = summed_us = 0.0
     events = prof.key_averages()
@@ -915,6 +929,13 @@ def profiled_run(label: str, run) -> dict:
         for k, name in SYMBOLS.items():
             if name in ev.key:
                 dev_us[k] += t
+    return res, dev_us, total_dev_us, summed_us, events
+
+
+def profiled_run(label: str, run) -> dict:
+    """`run()` under torch.profiler: device time by kernel, all device
+    time, and its share of the iterations' host time."""
+    res, dev_us, total_dev_us, summed_us, events = profiled(run)
     top_dev = sorted(events, key=lambda e: -float(
         getattr(e, "self_device_time_total", 0.0) or 0.0))[:8]
     top_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
@@ -1495,6 +1516,357 @@ def phase_paper(results, priv):
     results["_paper"] = dict(table1=t1, table2=t2, triple_s=triple_s)
 
 
+# ---------------------------------------------------------------------------
+# resumable sessions and the scoring service at Table 1 width
+# ---------------------------------------------------------------------------
+
+def table1_test_parties():
+    """The 30% held-out rows of Table 1's twin (9000), split over C and
+    B1 as the training rows are."""
+    from repro_torch.core.trainer import PartyData
+    from repro_torch.data import synthetic, vertical
+    X, y = synthetic.credit_default(n=30000, d=24, seed=0)
+    _, (Xte, _) = synthetic.train_test_split(X, y, 0.7)
+    parts = vertical.split_columns(Xte, 2)
+    return [PartyData("C", parts[0]), PartyData("B1", parts[1])]
+
+
+def write_party_slices(root: str, state, cfg) -> None:
+    """Each party's own slice of `state` (its weights, the streams and
+    ledgers as captured) under `party_checkpoint_dir(root, name)`,
+    stamped with the run's config hash and codec version, as a party
+    server writes it."""
+    import dataclasses
+    from repro_torch.checkpoint import party_checkpoint_dir, save_checkpoint
+    from repro_torch.runtime import session
+    for name, w in state.weights.items():
+        own = dataclasses.replace(state, weights={name: w})
+        tree, extra = own.to_checkpoint()
+        save_checkpoint(party_checkpoint_dir(root, name), state.it, tree,
+                        extra, config_hash=session.config_hash(cfg),
+                        codec_version=session.CODEC_VERSION)
+
+
+def one_shot(weights: dict, parties, rows=slice(None)):
+    """The one-shot scorer: C's share first, then roster order, through
+    `glm.matvec_rowwise` (`TrainResult.predict_wx`'s association)."""
+    from repro_torch.core import glm as glm_lib
+    wx = sum(glm_lib.matvec_rowwise(p.X[rows], weights[p.name])
+             for p in parties)
+    return glm_lib.GLMS["logistic"].predict(wx)
+
+
+def time_at_shapes(shapes: dict) -> dict:
+    """K1 and K2 at every shape of `shapes` (`path_shapes`): the kernel
+    (CUDA events over back-to-back launches) and its plain version on the
+    same random states, and the bound (`bound`)."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import round_check
+    from repro_torch.kernels import montexp, montmul
+    gen = np.random.default_rng(43)
+    ctxs = round_check.k1_contexts()
+    out = {"rns_montmul": [], "rns_mont_exp": []}
+    for (batch, ch, shared), n in sorted(shapes["rns_montmul"].items()):
+        c = ctxs[ch]
+        x = _random_states(c, batch, gen, "cuda")
+        y = _random_states(c, batch, gen, "cuda")
+        y = y[0].contiguous() if shared else y
+        b, by = bound((2 - shared) * batch * ch * 4 + shared * ch * 4
+                      + batch * ch * 4, batch, c)
+        out["rns_montmul"].append(dict(
+            batch=batch, CH=ch, shared_y=bool(shared), launches=n,
+            ms=time_ms(lambda: montmul.rns_montmul_tiled(x, y, c), 50),
+            plain_ms=time_ms(lambda: montmul.plain(x, y, c), 5),
+            bound_ms=b, bound_by=by))
+    for (rows, ch, nbits, shared), n in sorted(
+            shapes["rns_mont_exp"].items()):
+        c = ctxs[ch]
+        u = _random_states(c, rows, gen, "cuda")
+        e = torch.as_tensor(gen.integers(0, 2, size=nbits if shared
+                                         else (rows, nbits)),
+                            dtype=torch.int32, device="cuda")
+        b, by = bound(2 * rows * ch * 4 + e.numel() * 4,
+                      rows * (2 * nbits + 1), c)
+        out["rns_mont_exp"].append(dict(
+            rows=rows, CH=ch, bits=nbits, shared=bool(shared), launches=n,
+            ms=time_ms(lambda: montexp.rns_mont_exp_tiled(u, e, c), 5),
+            plain_ms=time_ms(lambda: montexp.plain_ladder(u, e, c), 1,
+                             warmup=0),
+            bound_ms=b, bound_by=by))
+    for k, rows in out.items():
+        for r in rows:
+            log(f"[serve] {k} at the publish's shape {json.dumps(r)}")
+    return out
+
+
+def served(eng, parties, rows) -> list:
+    """Submit `rows` of the held-out parties to `eng`; return the
+    finished requests by rid once the engine has drained."""
+    for i in rows:
+        eng.submit({p.name: p.X[i] for p in parties})
+    return sorted(eng.run(), key=lambda r: r.rid)
+
+
+def require_one_version_per_batch(label: str, done) -> None:
+    by_batch = {}
+    for r in done:
+        by_batch.setdefault(r.batch_seq, set()).add(r.model_version)
+    mixed = {s: v for s, v in by_batch.items() if len(v) != 1}
+    if mixed:
+        fail(f"{label}: batches scored by more than one version: {mixed}")
+
+
+def phase_serve(results, mock):
+    """Resumable sessions and the scoring service at Table 1's width
+    (1024-bit keys, the default engine).  Resume: two steps, a save
+    through `CheckpointManager` (config hash and codec version stamped),
+    a restore into a fresh scheduler (fresh keys from the same seed), the
+    third iteration equal to the uninterrupted run and the mock run and
+    launching K1 54, K2 8, K3 2 times, K4–K8 none.  Serve: v0 published
+    from the resumed parties (K2 and K1 launched: each party's [[w]]
+    under its own key; held against their plain versions at the shapes
+    launched, and timed), the 9000 held-out rows scored at max_batch 64
+    and 512, each prediction equal to the one-shot scorer, the
+    `infer.wx_share` meter at n·(k−1)·8 bytes, no kernel launched while
+    scoring.  Hot swap: the step-2 party slices loaded with requests
+    queued, one version per batch, v1 equal to the one-shot scorer on the
+    step-2 weights, K2 and K1 launched again; then the same swap applied
+    from the service's worker thread, and a republish timed from the main
+    thread and from a worker thread."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    from repro_torch.bench import tables
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.trainer import VFLConfig
+    from repro_torch.runtime import VFLScheduler, session
+    from repro_torch.runtime.session import TrainState
+    from repro_torch.serve import VFLScoringEngine
+    parties, y = table1_parties()
+    names = [p.name for p in parties]
+    cfg = VFLConfig(he_backend="paillier", **table1_kw())
+    launches_by = {}
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        # -- resume ---------------------------------------------------------
+        sched_a = VFLScheduler(parties, y, cfg)
+        state = sched_a.init_state()
+        for _ in range(2):
+            state = sched_a.step(state)
+        run_dir = os.path.join(root, "run")
+
+        def manager():
+            return CheckpointManager(run_dir,
+                                     config_hash=session.config_hash(cfg),
+                                     codec_version=session.CODEC_VERSION)
+        t0 = time.perf_counter()
+        manager().save(state.it, *state.to_checkpoint())
+        save_ms = (time.perf_counter() - t0) * 1e3
+        ckpt_bytes = {ext: os.path.getsize(os.path.join(run_dir,
+                                                        f"step_2{ext}"))
+                      for ext in (".npz", ".json")}
+        write_party_slices(root, state, cfg)
+        ref = sched_a.run(state=state)               # uninterrupted
+        check_equal("serve: uninterrupted run", ref, mock)
+        t0 = time.perf_counter()
+        got = manager().restore(TrainState.tree_template(names))
+        if got is None:
+            fail("resume: no checkpoint restored")
+        restored = TrainState.from_checkpoint(got[1], got[2])
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if got[0] != 2 or not restored.equals(state):
+            fail(f"resume: restored step {got[0]} differs from the saved "
+                 "state")
+        sched_b = VFLScheduler(parties, y, cfg)      # fresh keys, same seed
+        res, launches, wall, peak = counted_run(
+            lambda: sched_b.run(state=restored))
+        check_equal("resume (against the mock run)", res, mock)
+        try:
+            tables.require_equal("resume (against the uninterrupted run)",
+                                 res, ref)
+        except RuntimeError as e:
+            fail(str(e))
+        require("resume", launches, zero=OFF_RNS_PATH,
+                exact={"rns_montmul": 54, "rns_mont_exp": 8,
+                       "rns_he_matvec": 2})
+        launches_by["resume"] = launches
+        it_s = res.runtime_s - restored.runtime_s
+        log(f"[serve] resume: step 2 saved in {save_ms:.2f} ms (npz "
+            f"{ckpt_bytes['.npz']} B, manifest {ckpt_bytes['.json']} B), "
+            f"restored in {restore_ms:.2f} ms into a fresh scheduler; the "
+            f"resumed iteration {it_s:.3f} s (host clock), {wall:.2f} s "
+            f"wall, equal to the uninterrupted and the mock runs (losses, "
+            f"weights, bytes by tag, rounds {res.rounds}); launches "
+            f"{launches}")
+        out["resume"] = dict(save_ms=save_ms, restore_ms=restore_ms,
+                             ckpt_bytes=ckpt_bytes, iteration_s=it_s,
+                             wall_s=wall, peak_bytes=peak)
+
+        # -- serve ----------------------------------------------------------
+        test = table1_test_parties()
+        n_req = test[0].X.shape[0]
+        want = one_shot(res.weights, test)
+        eng, launches, publish_s, _ = counted_run(lambda: VFLScoringEngine(
+            sched_b.parties, max_batch=64, checkpoint_dir=root))
+        require("publish", launches, positive=("rns_montmul", "rns_mont_exp"),
+                zero=OFF_RNS_PATH + ("rns_he_matvec",))
+        launches_by["publish"] = launches
+        publish_shapes = path_shapes()
+        held = hold_at_shapes("serve publish", publish_shapes)
+        timed = time_at_shapes(publish_shapes)
+        for p in sched_b.parties:
+            enc = p.serving_cache.enc_w
+            if enc.device.type != torch.device(cfg.device).type \
+                    or enc.shape[0] != p.X.shape[1]:
+                fail(f"publish: {p.name}'s [[w]] is {tuple(enc.shape)} on "
+                     f"{enc.device}")
+        out["publish"] = dict(publish_s=publish_s, launches=launches,
+                              held=held)
+        log(f"[serve] publish v0 ({len(names)} parties x "
+            f"{parties[0].X.shape[1]} weights encrypted under their own "
+            f"{cfg.key_bits}-bit keys): {publish_s * 1e3:.1f} ms, launches "
+            f"{launches}")
+        for mb in (64, 512):
+            e = eng if mb == 64 else VFLScoringEngine(
+                sched_b.parties, max_batch=mb, checkpoint_dir=root)
+            t0 = time.perf_counter()
+            done, score_launches, _, _ = counted_run(
+                lambda: served(e, test, range(n_req)))
+            wall = time.perf_counter() - t0
+            got = np.array([r.prediction for r in done])
+            if len(done) != n_req or not np.array_equal(got, want):
+                fail(f"serve max_batch {mb}: predictions differ from the "
+                     "one-shot scorer")
+            if any(r.model_version != 0 for r in done):
+                fail(f"serve max_batch {mb}: a request not scored at v0")
+            wx_bytes = e.transport.meter.by_tag["infer.wx_share"]
+            if wx_bytes != n_req * (len(names) - 1) * 8:
+                fail(f"serve max_batch {mb}: infer.wx_share {wx_bytes} B")
+            require(f"serve max_batch {mb}", score_launches,
+                    zero=tuple(KERNELS))
+            lat = e.latencies() * 1e3
+            row = dict(n_req=n_req, batches=len({r.batch_seq for r in done}),
+                       p50_ms=float(np.percentile(lat, 50)),
+                       p99_ms=float(np.percentile(lat, 99)),
+                       rps=n_req / wall, wx_bytes=wx_bytes)
+            out[f"serve_b{mb}"] = row
+            log(f"[serve] {n_req} held-out rows at max_batch {mb}: every "
+                f"prediction equal to the one-shot scorer; "
+                f"infer.wx_share {wx_bytes} B; no kernel launched; "
+                + json.dumps(row))
+
+        # -- hot swap, synchronous ------------------------------------------
+        eng = VFLScoringEngine(sched_b.parties, max_batch=64,
+                               checkpoint_dir=root)
+        for i in range(512):
+            eng.submit({p.name: p.X[i] for p in test})
+        if eng.step() != 64:
+            fail("swap: the first batch did not close at 64 requests")
+        if eng.swap_model(step=2) != 1:
+            fail("swap: the swapped model is not version 1")
+        done, launches, swap_s, _ = counted_run(eng.run)
+        done = sorted(done, key=lambda r: r.rid)
+        versions = [r.model_version for r in done]
+        if versions != [0] * 64 + [1] * 448:
+            fail(f"swap: versions {sorted(set(versions))} not 64 at v0 then "
+                 "448 at v1")
+        require_one_version_per_batch("swap", done)
+        got = np.array([r.prediction for r in done])
+        if not (np.array_equal(got[:64], want[:64]) and np.array_equal(
+                got[64:], one_shot(state.weights, test, slice(64, 512)))):
+            fail("swap: predictions differ from the one-shot scorer of "
+                 "their version's weights")
+        require("swap", launches, zero=OFF_RNS_PATH + ("rns_he_matvec",),
+                exact={k: launches_by["publish"][k]
+                       for k in ("rns_montmul", "rns_mont_exp")})
+        if path_shapes() != publish_shapes:
+            fail("swap: K1/K2 launched at other shapes than the publish")
+        launches_by["swap"] = launches
+        log(f"[serve] hot swap to step 2 with 448 requests queued: one "
+            f"version per batch, v1 equal to the one-shot scorer on the "
+            f"step-2 weights; drain with the swap {swap_s * 1e3:.1f} ms; "
+            f"launches {launches}")
+
+        # -- hot swap from the service's worker thread ----------------------
+        for p in sched_b.parties:              # serve the trained model again
+            p.W = np.array(res.weights[p.name])
+        eng = VFLScoringEngine(sched_b.parties, max_batch=64,
+                               max_wait_s=0.002, checkpoint_dir=root)
+
+        def service():
+            eng.start(poll_interval_s=0.001)
+            try:
+                for i in range(256):
+                    eng.submit({p.name: p.X[i] for p in test})
+                until = time.monotonic() + 120
+                while len(eng.finished) < 64 and time.monotonic() < until:
+                    time.sleep(0.001)
+                eng.swap_model(step=2)            # v0 batches have closed
+                for i in range(256, 512):
+                    eng.submit({p.name: p.X[i] for p in test})
+                while eng.busy and time.monotonic() < until:
+                    time.sleep(0.002)
+            finally:
+                eng.stop(drain=True)
+            return sorted(eng.finished, key=lambda r: r.rid)
+        done, launches, _, _ = counted_run(service)
+        n_v1 = sum(r.model_version == 1 for r in done)
+        if len(done) != 512 or eng.model_version != 1 \
+                or not 256 <= n_v1 <= 448:
+            fail(f"service swap: {len(done)} requests, {n_v1} at v1, "
+                 f"version {eng.model_version}")
+        require_one_version_per_batch("service swap", done)
+        weights = {0: res.weights, 1: state.weights}
+        for r in done:
+            if r.prediction != one_shot(weights[r.model_version], test,
+                                        slice(r.rid, r.rid + 1))[0]:
+                fail(f"service swap: request {r.rid} differs from the "
+                     f"one-shot scorer of v{r.model_version}")
+        require("service swap", launches,
+                zero=OFF_RNS_PATH + ("rns_he_matvec",),
+                exact={k: launches_by["publish"][k]
+                       for k in ("rns_montmul", "rns_mont_exp")})
+        launches_by["swap_worker"] = launches
+
+        # the republish's host cost from the main thread and from a worker
+        # thread (main, worker, worker, main)
+        def republish():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for p in sched_b.parties:
+                p.set_weights(p.W, version=p.model_version + 1)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            cost = {"main": [], "worker": []}
+            for where in ("main", "worker", "worker", "main"):
+                cost[where].append(republish() if where == "main"
+                                   else ex.submit(republish).result())
+        host_ms, dev_us, all_us, _, _ = profiled(republish)
+        prof = dict(host_ms=host_ms, device_ms=all_us / 1e3,
+                    busy_share=all_us / 1e3 / host_ms,
+                    by_kernel={k: v / 1e3 for k, v in dev_us.items() if v})
+        log(f"[serve] a republish under the profiler: {host_ms:.2f} ms of "
+            f"host clock, device time of all CUDA work {all_us / 1e3:.3f} ms "
+            f"({100 * prof['busy_share']:.1f}%), by kernel (ms) "
+            + json.dumps(prof["by_kernel"]))
+        out["swap"] = dict(drain_with_swap_s=swap_s, service_v1=n_v1,
+                           republish_ms=cost, republish_profile=prof)
+        log(f"[serve] swap applied by the service's worker thread: 512 "
+            f"requests, {n_v1} at v1, one version per batch, each equal to "
+            f"the one-shot scorer of its version; launches {launches}; a "
+            f"republish (2 parties) takes {cost['main']} ms from the main "
+            f"thread and {cost['worker']} ms from a worker thread")
+    for k in RNS_PATH:
+        results.setdefault(k, {})["serve_launches"] = {
+            path: n[k] for path, n in launches_by.items()}
+    for k, rows in timed.items():
+        results[k]["serve_shapes"] = rows
+    results["_serve"] = out
+
+
 def phase_k1_shapes(results):
     """K1 at every (batch, CH, shared y) it launched at on the RNS path
     and path B, each in a CUDA graph beside an empty kernel's launch
@@ -1607,6 +1979,10 @@ def main(argv=None):
     ap.add_argument("--pipelined", action="store_true",
                     help="only run the concurrent-leg schedule's phase "
                     "(PipelinedTransport at Table 1 width, k = 2 and 4)")
+    ap.add_argument("--serve", action="store_true",
+                    help="only run the resumable-session and scoring-"
+                    "service phase (resume, publish, serve, hot swap at "
+                    "Table 1 width)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1648,6 +2024,15 @@ def main(argv=None):
             f"{time.perf_counter() - t_start:.1f} s; card {card}; summary "
             f"{json.dumps(results['_pipelined'])}")
         return
+    if args.serve:
+        from repro_torch.core.trainer import VFLConfig, train_vfl
+        parties, y = table1_parties()
+        mock = train_vfl(parties, y, VFLConfig(he_backend="mock",
+                                               **table1_kw()))
+        phase_serve(results, mock)
+        log(f"[done] serve phase only, {time.perf_counter() - t_start:.1f} "
+            f"s; card {card}; summary {json.dumps(results['_serve'])}")
+        return
     if args.paper:
         phase_paper(results, priv)
         log(f"[done] paper path only, {time.perf_counter() - t_start:.1f} "
@@ -1671,6 +2056,7 @@ def main(argv=None):
     phase_path_b(results, mock)
     phase_pipelined(results, priv)
     phase_paper(results, priv)
+    phase_serve(results, mock)
     phase_k1_shapes(results)
     phase_probe(results)
     phase_bench(results)
@@ -1685,7 +2071,8 @@ def main(argv=None):
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"),
                         "bound_by": r.get("bound_by"), "library_ms": None})
-        for extra in ("graph_ms", "shapes", "paper_launches"):
+        for extra in ("graph_ms", "shapes", "paper_launches",
+                      "serve_launches", "serve_shapes"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card {card}; "

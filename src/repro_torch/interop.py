@@ -1,11 +1,9 @@
-"""Hand keys and training state over from the JAX package, as plain
+"""Hand keys and tables over from the JAX package, as plain
 integers and numpy arrays (this module imports neither package's
 arrays: callers pass the reference objects' fields).
 
 * `keys_from_numpy` builds the port's `PrivateKey` from the primes and
   checks every numpy field it is given against the derived one.
-* `state_from_numpy` builds the port's `TrainState` from the fields of a
-  reference `TrainState`.
 * `table_from_numpy` builds the port's `FixedBaseTable` from a reference
   table's payload and identity fields, checking its header.
 """
@@ -14,7 +12,6 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.crypto import fixed_base, paillier
-from repro_torch.runtime.session import TrainState, send_rows
 
 
 def keys_from_numpy(p: int, q: int, key_bits: int,
@@ -29,30 +26,6 @@ def keys_from_numpy(p: int, q: int, key_bits: int,
             raise ValueError(f"key field {name!r} differs from the value "
                              "derived from p and q")
     return key
-
-
-def state_from_numpy(fields: dict) -> TrainState:
-    """A port `TrainState` from a reference `TrainState`'s fields
-    (`vars(state)`): weights, batch schedule, generator states, threefry
-    key data, dealer state, the send ledger and the round count."""
-    return TrainState(
-        it=int(fields["it"]),
-        weights={n: np.array(w, np.float64)
-                 for n, w in fields["weights"].items()},
-        losses=[float(v) for v in fields["losses"]],
-        stop=bool(fields["stop"]),
-        order=np.array(fields["order"], np.int64),
-        cursor=int(fields["cursor"]),
-        batch_rng=fields["batch_rng"],
-        jkey=np.array(fields["jkey"], np.uint32),
-        protocol_rng=fields["protocol_rng"],
-        select_rng=fields["select_rng"],
-        dealer={"key": np.array(fields["dealer"]["key"], np.uint32),
-                "drawn": int(fields["dealer"]["drawn"])},
-        noise_pool_fill=int(fields["noise_pool_fill"]),
-        meter_sends=send_rows(fields["meter_sends"]),
-        rounds=int(fields["rounds"]),
-        runtime_s=float(fields["runtime_s"]))
 
 
 def table_from_numpy(table_rns: np.ndarray, *, purpose: str, n: int,

@@ -18,6 +18,7 @@ Message type ↔ paper mapping (also surfaced in README.md):
   P3.masked_grad    Protocol 3 lines 5–6         masked encrypted gradient
   P3.unmasked_share Protocol 3 line 7            decrypted+offset-corrected
   P4.loss_share     Protocol 4                   loss share → CP0 → C
+  infer.wx_share    serving path                 local score share X_p W_p
   flag              Alg. 1 line 27               C's stop-flag broadcast
 """
 from __future__ import annotations
@@ -39,6 +40,7 @@ TAG_PROTOCOL: dict[str, str] = {
     "P3.masked_grad": "Protocol 3 lines 5–6 — masked encrypted gradient",
     "P3.unmasked_share": "Protocol 3 line 7 — decrypted, offset-corrected share",
     "P4.loss_share": "Protocol 4 — loss share to CP0, forwarded to C",
+    "infer.wx_share": "Serving — local score share X_p W_p sent to C",
     "flag": "Alg.1 line 27 — C's stop-flag broadcast",
 }
 
@@ -141,6 +143,12 @@ class LossShare(RingMessage):
     """Protocol 4 — scalar loss share (R64, f fractional bits),
     CP₁ → CP₀, then the reconstructed sum CP₀ → C."""
     tag = "P4.loss_share"
+
+
+class WxShare(RingMessage):
+    """Serving path — local score share X_p W_p (float64, 8 B/row),
+    party → C."""
+    tag = "infer.wx_share"
 
 
 class EncD(CipherMessage):

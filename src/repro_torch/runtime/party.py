@@ -32,8 +32,10 @@ unless noted); ciphertexts are Montgomery-domain mod-n² int64 limb
 tensors of shape (batch, L2) under a named party's Paillier key (the
 mock backend carries R64 instead); weights and features are host
 float64, and the local products X[idx] @ W stay numpy so they keep the
-reference's float64 bits.  The serving half of the reference's actors
-waits for a later slice.
+reference's float64 bits.  Served scores stay host float64 too (through
+`glm.matvec_rowwise`), so a served prediction equals the one-shot
+scorer's bit for bit; only a published version's encrypted constant
+[[w]] lives on the device.
 """
 from __future__ import annotations
 
@@ -154,6 +156,9 @@ class Party(CPRole):
         self.feats = protocols.EncodedFeatures.make(self.X, cfg.fx,
                                                     cfg.exp_width)
         self.stop = False
+        # serving: pinned model versions (see repro_torch/serve/cache.py)
+        self.model_version: Optional[int] = None
+        self.serving_cache = None
         # per-iteration scratch
         self.cp = None
         self._idx = None
@@ -245,6 +250,8 @@ class Party(CPRole):
         if isinstance(m, msg.Flag):
             self.stop = m.stop
             return []
+        if isinstance(m, msg.WxShare):
+            return self._absorb_wx(m)
         return []
 
     # -- Protocol 3 ---------------------------------------------------------
@@ -282,6 +289,61 @@ class Party(CPRole):
         total = sharing.reconstruct(self.cp.l_self, m.payload)
         return [msg.LossShare(self.name, "C", total)]
 
+    # -- inference ----------------------------------------------------------
+    def publish_version(self, version: int) -> None:
+        """Pin the CURRENT weights as served model `version`: snapshot W
+        and (re)build the serving cache — windowed-digit precompute of
+        the weight row plus the encrypted constant [[w]] — keyed by
+        (version, key fingerprint).  Versioned scoring is only possible
+        after a publish; `predict_share(version=)` refuses otherwise
+        (`StaleCacheError` — see repro_torch/serve/cache.py)."""
+        from repro_torch.serve.cache import PartyServingCache
+        self.model_version = int(version)
+        self.serving_cache = PartyServingCache.build(self, int(version))
+
+    def set_weights(self, W: np.ndarray, version: int) -> None:
+        """Install swapped-in weights (hot model swap from a checkpoint
+        slice) and publish them as `version` in one step — a serving-
+        phase operation; never call it mid-training."""
+        self.W = np.asarray(W, np.float64)
+        self.publish_version(version)
+
+    def predict_share(self, X_new: np.ndarray | None = None,
+                      version: int | None = None) -> np.ndarray:
+        """Local score share X_p W_p — the runtime-backed serving path.
+
+        With `version=None` this is the unversioned path over the live
+        weights.  With a version, the share is computed against the
+        PINNED snapshot of that published version, and a version/key
+        mismatch refuses (`StaleCacheError`) instead of silently scoring
+        the wrong model."""
+        # matvec_rowwise, not @: batch-size-invariant float64 bits, so a
+        # micro-batched share equals the one-shot scorer's bit-for-bit
+        X = self.X if X_new is None else np.asarray(X_new, np.float64)
+        if version is None:
+            return glm_lib.matvec_rowwise(X, self.W)
+        from repro_torch.serve.cache import (StaleCacheError,
+                                             key_fingerprint_of)
+        if self.serving_cache is None:
+            raise StaleCacheError(
+                f"{self.name}: no published model version (call "
+                f"publish_version) — refusing versioned score request "
+                f"for version {int(version)}")
+        cache = self.serving_cache.ensure(
+            int(version), key_fingerprint_of(self.backend, self.name),
+            party=self.name)
+        return glm_lib.matvec_rowwise(X, cache.W)
+
+    def wx_share_msg(self, X_new: np.ndarray, dst: str = "C",
+                     version: int | None = None) -> msg.WxShare:
+        """Score share as a wire message (8-byte float64 per row)."""
+        wx = self.predict_share(X_new, version=version)
+        return msg.WxShare(self.name, dst, wx, n_elems=len(wx))
+
+    def _absorb_wx(self, m: msg.WxShare) -> list[msg.Message]:
+        raise RuntimeError(f"{self.name}: score share from {m.src}; only "
+                           "the label party C scores")
+
 
 class DataParty(Party):
     """B_k — a feature provider; pure Party behaviour."""
@@ -296,6 +358,9 @@ class LabelParty(Party):
         self.y = np.asarray(y, np.float64)
         self.model = model
         self.losses: list[float] = []
+        self._wx_senders: list[str] = []
+        self._wx_by_src: dict[str, np.ndarray] = {}
+        self._wx_rows = 0
 
     def share_y(self, key) -> list[msg.Message]:
         val = fixed_point.encode(self.y[self._idx], self.cfg.f,
@@ -321,3 +386,45 @@ class LabelParty(Party):
                 and abs(self.losses[-1] - self.losses[-2]) < self.cfg.tol)
         self.stop = flag
         return [msg.Flag(self.name, p, stop=flag) for p in others]
+
+    # -- inference (serving path) ------------------------------------------
+    def begin_inference(self, n_rows: int, senders: list[str]) -> None:
+        """Open an inference batch of `n_rows` rows.  `senders` is the
+        ROSTER-ORDERED list of data-party names expected to ship
+        `infer.wx_share` messages.  Shares are held per source and summed
+        in roster order at `finish_inference`: arrival order may race and
+        float64 addition does not commute bit for bit."""
+        self._wx_senders = [str(s) for s in senders]
+        self._wx_by_src = {}
+        self._wx_rows = int(n_rows)
+
+    def _absorb_wx(self, m: msg.WxShare) -> list[msg.Message]:
+        if m.src not in self._wx_senders:
+            raise RuntimeError(f"{self.name}: score share from {m.src}, "
+                               f"expected one of {self._wx_senders}")
+        if m.src in self._wx_by_src:
+            raise RuntimeError(f"{self.name}: duplicate score share "
+                               f"from {m.src}")
+        wx = np.asarray(m.payload, np.float64)
+        if wx.shape != (self._wx_rows,):
+            raise RuntimeError(f"{self.name}: score share from {m.src} has "
+                               f"shape {wx.shape}, the batch {self._wx_rows} "
+                               "rows")
+        self._wx_by_src[m.src] = wx
+        return []
+
+    @property
+    def inference_ready(self) -> bool:
+        return all(s in self._wx_by_src for s in self._wx_senders)
+
+    def finish_inference(self, X_own: np.ndarray,
+                         version: int | None = None) -> np.ndarray:
+        missing = [s for s in self._wx_senders if s not in self._wx_by_src]
+        if missing:
+            raise RuntimeError(f"missing party score shares: {missing}")
+        # own term first, then roster order — the same association as
+        # TrainResult.predict_wx, so one-shot and served agree bitwise
+        wx = self.predict_share(X_own, version=version)
+        for nm in self._wx_senders:
+            wx = wx + self._wx_by_src[nm]
+        return self.model.predict(wx)

@@ -15,18 +15,52 @@ over it.  Field inventory (as in the reference):
   dealer            Beaver dealer key data + drawn counter
   noise_pool_fill   prefetched-noise batches alive at capture (0 at
                     every iteration boundary: the pool is discarded)
-  meter_sends       per-tag byte ledger
+  meter_sends /     per-tag byte accounting (analytic, and for socket
+  measured_sends    parties the measured-on-the-wire ledger + frame
+  / overhead /      overhead), so a resumed run's accounting is
+  frames_sent       bit-identical to an uninterrupted one
   rounds / runtime_s  transport latency steps + accumulated wall clock
 
-Checkpoint serialization waits for a later slice; `interop.state_from_
-numpy` builds a state from the reference's arrays.
+Serialization: `to_checkpoint()` splits the state into a numpy tree
+(arrays → the `.npz` archive) and a JSON-able `extra` dict (scalars,
+generator states, the meter ledger → the manifest), the (tree, extra)
+interface of `repro_torch.checkpoint.CheckpointManager`.  Manifests carry
+`config_hash(cfg)` and `CODEC_VERSION`, so a resume against another run
+configuration or codec is refused (`checkpoint.CheckpointMismatch`).
+Both equal the reference's, so checkpoints pass between the packages in
+either direction.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Any, Optional
 
 import numpy as np
+
+#: version of the reference's wire codec (its `runtime/codec.py`), stamped
+#: into every manifest: serialized stream state is not portable across
+#: codec versions
+CODEC_VERSION = 1
+
+#: VFLConfig fields that change neither the trained model nor any derived
+#: randomness stream, so they stay out of the resume-compatibility hash:
+#: the checkpoint cadence, lossless wire compression, and the device the
+#: shares and ciphertexts live on (placement changes no stream).  The
+#: engine name stays in: `crypto_engine="auto"` hashes as the reference's.
+_NON_SEMANTIC_CFG_FIELDS = ("checkpoint_every", "wire_compression", "device")
+
+
+def config_hash(cfg) -> str:
+    """Semantic fingerprint of a `VFLConfig`: equal hashes ⇒ identical
+    derived streams and model trajectory.  Stamped into every checkpoint
+    manifest; resumes with a different hash are refused."""
+    d = dataclasses.asdict(cfg)
+    for k in _NON_SEMANTIC_CFG_FIELDS:
+        d.pop(k, None)
+    return hashlib.sha256(
+        json.dumps(d, sort_keys=True).encode()).hexdigest()[:16]
 
 
 @dataclasses.dataclass(eq=False)
@@ -51,6 +85,73 @@ class TrainState:
     meter_sends: Any
     rounds: int
     runtime_s: float
+    measured_sends: Optional[Any] = None
+    overhead_bytes: int = 0
+    frames_sent: int = 0
+
+    # -- (de)serialization --------------------------------------------------
+    def to_checkpoint(self) -> tuple[dict, dict]:
+        """(tree of numpy arrays, JSON extra) for `CheckpointManager.save`."""
+        tree = {
+            "dealer_key": np.asarray(self.dealer["key"], np.uint32),
+            "jkey": np.asarray(self.jkey, np.uint32),
+            "order": np.asarray(self.order, np.int64),
+            "weights": {n: np.asarray(w, np.float64)
+                        for n, w in self.weights.items()},
+        }
+        extra = {
+            "it": int(self.it),
+            "losses": [float(v) for v in self.losses],
+            "stop": bool(self.stop),
+            "cursor": int(self.cursor),
+            "batch_rng": self.batch_rng,
+            "protocol_rng": self.protocol_rng,
+            "select_rng": self.select_rng,
+            "dealer_drawn": int(self.dealer["drawn"]),
+            "noise_pool_fill": int(self.noise_pool_fill),
+            "meter_sends": send_rows(self.meter_sends),
+            "rounds": int(self.rounds),
+            "runtime_s": float(self.runtime_s),
+            "measured_sends": None if self.measured_sends is None
+            else send_rows(self.measured_sends),
+            "overhead_bytes": int(self.overhead_bytes),
+            "frames_sent": int(self.frames_sent),
+            "party_names": sorted(self.weights),
+        }
+        return tree, extra
+
+    @staticmethod
+    def tree_template(party_names) -> dict:
+        """Structure-only template for `CheckpointManager.restore` (leaf
+        values are irrelevant; the structure must match `to_checkpoint`)."""
+        return {"dealer_key": 0, "jkey": 0, "order": 0,
+                "weights": {n: 0 for n in party_names}}
+
+    @staticmethod
+    def from_checkpoint(tree: dict, extra: dict) -> "TrainState":
+        return TrainState(
+            it=int(extra["it"]),
+            weights={n: np.asarray(w, np.float64)
+                     for n, w in tree["weights"].items()},
+            losses=[float(v) for v in extra["losses"]],
+            stop=bool(extra["stop"]),
+            order=np.asarray(tree["order"], np.int64),
+            cursor=int(extra["cursor"]),
+            batch_rng=extra["batch_rng"],
+            jkey=np.asarray(tree["jkey"], np.uint32),
+            protocol_rng=extra["protocol_rng"],
+            select_rng=extra["select_rng"],
+            dealer={"key": np.asarray(tree["dealer_key"], np.uint32),
+                    "drawn": int(extra["dealer_drawn"])},
+            noise_pool_fill=int(extra["noise_pool_fill"]),
+            meter_sends=[list(s) for s in extra["meter_sends"]],
+            rounds=int(extra["rounds"]),
+            runtime_s=float(extra["runtime_s"]),
+            measured_sends=None if extra.get("measured_sends") is None
+            else [list(s) for s in extra["measured_sends"]],
+            overhead_bytes=int(extra.get("overhead_bytes", 0)),
+            frames_sent=int(extra.get("frames_sent", 0)),
+        )
 
     # -- comparison (numpy fields break dataclass ==) -----------------------
     def equals(self, other: "TrainState") -> bool:
@@ -58,13 +159,17 @@ class TrainState:
             return False
         scalar = ("it", "losses", "stop", "cursor", "batch_rng",
                   "protocol_rng", "select_rng", "noise_pool_fill",
-                  "rounds")
+                  "rounds", "overhead_bytes", "frames_sent")
         for f in scalar:
             a, b = getattr(self, f), getattr(other, f)
             if _normalize(a) != _normalize(b):
                 return False
-        if send_rows(self.meter_sends) != send_rows(other.meter_sends):
-            return False
+        for f in ("meter_sends", "measured_sends"):
+            a, b = getattr(self, f), getattr(other, f)
+            if (a is None) != (b is None):
+                return False
+            if a is not None and send_rows(a) != send_rows(b):
+                return False
         if set(self.weights) != set(other.weights):
             return False
         for n in self.weights:
@@ -79,8 +184,8 @@ class TrainState:
 
 
 def _normalize(v: Any) -> Any:
-    """Canonical form for comparing state values (tuples vs lists in
-    meter send rows; numpy scalars vs Python ints)."""
+    """Canonical form for comparing JSON-round-tripped values (tuples vs
+    lists in meter send rows; numpy scalars vs Python ints)."""
     if isinstance(v, (list, tuple)):
         return [_normalize(x) for x in v]
     if isinstance(v, dict):

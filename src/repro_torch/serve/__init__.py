@@ -1,0 +1,12 @@
+"""The secure scoring service of the federated GLM: admission control
+(micro-batching), per-version serving caches, and the in-process
+`VFLScoringEngine` with hot model swap."""
+from repro_torch.serve.batching import MicroBatcher
+from repro_torch.serve.cache import (PartyServingCache, StaleCacheError,
+                                     key_fingerprint_of)
+from repro_torch.serve.engine import (FeatureKeyError, ScoreRequest,
+                                      VFLScoringEngine)
+
+__all__ = ["VFLScoringEngine", "ScoreRequest", "FeatureKeyError",
+           "MicroBatcher", "PartyServingCache", "StaleCacheError",
+           "key_fingerprint_of"]

@@ -28,13 +28,13 @@ from repro.core import trainer as jtrainer
 from repro.data import synthetic, vertical
 from repro.runtime.scheduler import VFLScheduler as JScheduler
 
-from repro_torch import interop
 from repro_torch.core import protocols as tprot
 from repro_torch.core import trainer as ttrainer
 from repro_torch.crypto import engine as tengine
 from repro_torch.crypto import paillier as tpai
 from repro_torch.kernels import ops as tops
 from repro_torch.runtime import scheduler as tsched
+from repro_torch.runtime.session import TrainState
 
 
 def _data(glm):
@@ -160,12 +160,11 @@ def test_resume_from_reference_state():
     kw = _cfg_kw("poisson", "mock", "random")
     jsched = JScheduler(_parties(jtrainer, X, 3), y, jtrainer.VFLConfig(**kw))
     s1 = jsched.step(jsched.init_state())
-    s1_fields = dict(vars(s1))
     s2 = jsched.step(s1)
     tsch = tsched.VFLScheduler(_parties(ttrainer, X, 3), y,
                                ttrainer.VFLConfig(device="cpu", **kw))
-    got = tsch.step(interop.state_from_numpy(s1_fields))
-    assert got.equals(interop.state_from_numpy(dict(vars(s2))))
+    got = tsch.step(TrainState.from_checkpoint(*s1.to_checkpoint()))
+    assert got.equals(TrainState.from_checkpoint(*s2.to_checkpoint()))
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
