@@ -100,9 +100,27 @@ at max_batch 64 and 512, each prediction equal to the one-shot scorer,
 with p50/p99 latency and requests/s; a hot swap to the step-2 party
 checkpoint slices with requests queued (one version per batch, v1 equal
 to the one-shot scorer on the step-2 weights, K2 and K1 launched again),
-and the same swap from the service's worker thread.  Device time is the
-sum over the profiler's device events (a torch op's own event repeats
-its kernels' time).
+and the same swap from the service's worker thread.  Then the real wire
+(`phase_socket`, also alone as ``python3 chip_smoke.py --socket``): the
+same Table 1 configuration trained through `launch.cluster.SocketCluster`
+with each party a spawned process on the card (`counted_party` counts
+that process's kernel launches, by phase and inside the codec, and
+sends them back over the cluster's ready queue, never in a frame),
+equal to the local run on the card (losses, weights, bytes by tag,
+rounds), measured wire bytes equal to analytic bytes for every tag,
+K1–K3 launched in the party processes and held against their plain
+versions at every shape they launched at there, K1 timed at the
+codec's shapes; the host s/iteration of both runs, the frames and their
+overhead, the device memory of the party contexts; the 9000 held-out
+rows scored over the cluster (`VFLScoringEngine(cluster=)`) and after a
+hot swap to the parties' step-2 checkpoints, equal to the in-process
+engine, publish and swap launching K2 and K1 in the party processes; a
+k = 3 run (B1's columns copied) whose B1 is killed at iteration 2,
+resumed by `train_vfl_socket_resilient` after one restart and equal to
+the uninterrupted run; and the wire benchmark (`python -m
+repro_torch.bench.run --only wire`, written to `BENCH_cuda_wire.json`).
+Device time is the sum over the profiler's device events (a torch op's
+own event repeats its kernels' time).
 """
 from __future__ import annotations
 
@@ -1556,7 +1574,8 @@ def one_shot(weights: dict, parties, rows=slice(None)):
     return glm_lib.GLMS["logistic"].predict(wx)
 
 
-def time_at_shapes(shapes: dict) -> dict:
+def time_at_shapes(shapes: dict, label: str = "serve",
+                   what: str = "the publish's shape") -> dict:
     """K1 and K2 at every shape of `shapes` (`path_shapes`): the kernel
     (CUDA events over back-to-back launches) and its plain version on the
     same random states, and the bound (`bound`)."""
@@ -1596,7 +1615,7 @@ def time_at_shapes(shapes: dict) -> dict:
             bound_ms=b, bound_by=by))
     for k, rows in out.items():
         for r in rows:
-            log(f"[serve] {k} at the publish's shape {json.dumps(r)}")
+            log(f"[{label}] {k} at {what} {json.dumps(r)}")
     return out
 
 
@@ -1867,6 +1886,309 @@ def phase_serve(results, mock):
     results["_serve"] = out
 
 
+def counted_party(name, X, y, ready, host, checkpoint_dir, wire,
+                  device="cuda"):
+    """Spawn target of phase_socket's clusters: the port's party server
+    (`runtime.netparty.run_party_server`), its kernel launches counted
+    in this process — all of them, those of its publishes, swaps and
+    scoring requests, and K1's launched inside the codec (its
+    Montgomery boundary, by shape) — and sent back with its peak device
+    memory over the ready queue after the run: out of band, never in a
+    frame."""
+    import collections
+    import threading
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.runtime import codec as codec_lib
+    from repro_torch.runtime import netparty
+    ws = wrappers()
+    k1 = ws["rns_montmul"]
+    inside = threading.local()
+    lock = threading.Lock()
+    codec_k1 = collections.Counter()
+    phases = collections.defaultdict(collections.Counter)
+    count_launch = build.count_launch
+
+    def counted(wrapper, shape=None):
+        count_launch(wrapper, shape)
+        if wrapper is k1 and getattr(inside, "codec", False):
+            with lock:
+                codec_k1[shape] += 1
+
+    def in_codec(method):
+        def run(self, *a, **kw):
+            inside.codec = True
+            try:
+                return method(self, *a, **kw)
+            finally:
+                inside.codec = False
+        return run
+
+    def phased(method, phase):
+        def run(self, *a, **kw):
+            before = {k: w.launches for k, w in ws.items()}
+            try:
+                return method(self, *a, **kw)
+            finally:
+                for k, w in ws.items():
+                    phases[phase][k] += w.launches - before[k]
+        return run
+
+    build.count_launch = counted
+    for meth in ("_ct_payload", "_ct_from_payload"):
+        setattr(codec_lib.Codec, meth,
+                in_codec(getattr(codec_lib.Codec, meth)))
+    server = netparty.PartyServer
+    for meth, phase in (("_run_publish", "publish"), ("_run_swap", "swap"),
+                        ("_run_score", "score")):
+        setattr(server, meth, phased(getattr(server, meth), phase))
+    netparty.run_party_server(name, X, y, ready, host, checkpoint_dir, wire,
+                              device=device)
+    ready.put(("counts", name, {
+        "launches": {k: w.launches for k, w in ws.items()},
+        "phases": {p: dict(c) for p, c in phases.items()},
+        "shapes": {k: dict(ws[k].shapes) for k in RNS_PATH},
+        "codec_k1": dict(codec_k1),
+        "peak_bytes": torch.cuda.max_memory_allocated()
+        if torch.cuda.is_available() else 0,
+        "reserved_bytes": torch.cuda.max_memory_reserved()
+        if torch.cuda.is_available() else 0}))
+
+
+def counting_cluster():
+    """`launch.cluster.SocketCluster` whose parties run `counted_party`."""
+    import functools
+    from repro_torch.launch.cluster import SocketCluster
+
+    class CountingCluster(SocketCluster):
+        def party_target(self, name):
+            return functools.partial(counted_party, device=self.device)
+    return CountingCluster
+
+
+def party_reports(cl, n: int) -> dict:
+    """The `n` counting parties' reports, read from `cl.ready` after the
+    cluster was shut down."""
+    got = {}
+    while len(got) < n:
+        item = cl.ready.get(timeout=60)
+        if item[0] == "counts":
+            got[item[1]] = item[2]
+    return got
+
+
+def gpu_mem_used_mib() -> float:
+    """Device memory in use on the card, all processes (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True)
+    return float(out.stdout.strip().splitlines()[0]) \
+        if out.returncode == 0 else float("nan")
+
+
+def stepped_run(sched):
+    """`sched` run to its end a step at a time: (the result, each
+    iteration's host seconds after a synchronisation)."""
+    import torch
+    state, times = sched.init_state(), []
+    while state.it < sched.cfg.max_iter and not state.stop:
+        t0 = time.perf_counter()
+        state = sched.step(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sched.run(state=state), times
+
+
+def phase_socket(results):
+    """The real wire on the card.  Table 1 at full width (2 parties × 12
+    features, batch 2048, 1024-bit keys, fixed CPs, 3 iterations) through
+    `launch.cluster.SocketCluster`, each party a spawned process with its
+    own CUDA context (`counted_party`): equal to the local run on the
+    card (losses, weights, bytes by tag, rounds), measured bytes equal
+    to analytic bytes for every tag, K1–K3 launched in the party
+    processes and held against their plain versions at every shape they
+    launched at there, the codec's K1 shapes among them.  Then the 9000
+    held-out rows scored through `VFLScoringEngine(cluster=)` equal to
+    the in-process engine's, `infer.wx_share` measured = analytic; a
+    hot swap to the parties' step-2 checkpoints in the party processes
+    (publish and swap launch K2 and K1 there), equal again.  Then
+    `train_vfl_socket_resilient` at k = 3 (B1's columns copied) with B1
+    killed at iteration 2, equal to the uninterrupted local run, one
+    restart, and the wire benchmark (`BENCH_cuda_wire.json`)."""
+    import numpy as np
+    from repro_torch.bench import run as bench_run
+    from repro_torch.bench import tables
+    from repro_torch.core.trainer import VFLConfig
+    from repro_torch.launch.cluster import train_vfl_socket_resilient
+    from repro_torch.runtime import VFLScheduler
+    from repro_torch.serve import VFLScoringEngine
+    parties, y = table1_parties()
+    test = table1_test_parties()
+    n_test = test[0].X.shape[0]
+    cfg = VFLConfig(he_backend="paillier", checkpoint_every=1,
+                    **table1_kw())
+    out = {}
+    # -- the local run on the card, the reference -----------------------
+    sched = VFLScheduler(parties, y, cfg)
+    (local, local_it_s), l_launches, l_wall, _ = counted_run(
+        lambda: stepped_run(sched))
+    # -- Table 1 over sockets ------------------------------------------
+    (ROOT / "build").mkdir(exist_ok=True)
+    mem_before = gpu_mem_used_mib()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        t0 = time.perf_counter()
+        cl = counting_cluster()(parties, y, cfg, checkpoint_dir=root)
+        with cl:
+            start_s = time.perf_counter() - t0
+            res = cl.train()
+            mem_during = gpu_mem_used_mib()
+            try:
+                tables.require_equal("socket (against the local run)", res,
+                                     local)
+            except RuntimeError as e:
+                fail(str(e))
+            if dict(res.measured_meter.by_tag) != dict(res.meter.by_tag):
+                fail(f"socket: measured bytes {res.measured_meter.by_tag} "
+                     f"!= analytic {res.meter.by_tag}")
+            # -- scoring over the cluster ----------------------------------
+            t0 = time.perf_counter()
+            eng = VFLScoringEngine(cluster=cl, max_batch=512)   # v0
+            publish_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            remote = served(eng, test, range(n_test))
+            serve_s = time.perf_counter() - t0
+            near = VFLScoringEngine(sched.parties, max_batch=512,
+                                    checkpoint_dir=root)
+            inproc = served(near, test, range(n_test))
+            got = np.array([r.prediction for r in remote])
+            if not np.array_equal(got, [r.prediction for r in inproc]) \
+                    or not np.array_equal(got, one_shot(local.weights,
+                                                        test)):
+                fail("socket: scores over the cluster differ from the "
+                     "in-process engine's")
+            meters = cl.fetch_meters()
+            wx = (meters["meter"].by_tag["infer.wx_share"],
+                  meters["measured"].by_tag["infer.wx_share"])
+            if not wx[0] == wx[1] == n_test * 8:
+                fail(f"socket: infer.wx_share analytic / measured {wx}, "
+                     f"expected {n_test * 8}")
+            n_swap = min(1024, n_test)
+            t0 = time.perf_counter()
+            eng.swap_model(2)
+            near.swap_model(2)
+            remote2 = served(eng, test, range(n_swap))[n_test:]
+            swap_s = time.perf_counter() - t0
+            inproc2 = served(near, test, range(n_swap))[n_test:]
+            got2 = np.array([r.prediction for r in remote2])
+            if {r.model_version for r in remote2} != {1} \
+                    or not np.array_equal(
+                        got2, [r.prediction for r in inproc2]):
+                fail("socket: scores after the hot swap differ from the "
+                     "in-process engine's")
+        reports = party_reports(cl, len(parties))
+    launches = {k: sum(r["launches"][k] for r in reports.values())
+                for k in KERNELS}
+    require("socket (party processes)", launches,
+            positive=("rns_montmul", "rns_mont_exp", "rns_he_matvec"),
+            zero=OFF_RNS_PATH)
+    for phase in ("publish", "swap"):
+        n = {k: sum(r["phases"].get(phase, {}).get(k, 0)
+                    for r in reports.values()) for k in KERNELS}
+        require(f"socket {phase}", n,
+                positive=("rns_montmul", "rns_mont_exp"), zero=OFF_RNS_PATH)
+        out[f"{phase}_launches"] = {k: v for k, v in n.items() if v}
+    scored = {k: sum(r["phases"].get("score", {}).get(k, 0)
+                     for r in reports.values()) for k in KERNELS}
+    if any(scored.values()):
+        fail(f"socket: scoring launched kernels {scored}")
+    shapes = {k: {} for k in RNS_PATH}
+    codec_k1 = {}
+    for r in reports.values():
+        for k in RNS_PATH:
+            for key, n in r["shapes"][k].items():
+                shapes[k][key] = shapes[k].get(key, 0) + n
+        for key, n in r["codec_k1"].items():
+            codec_k1[key] = codec_k1.get(key, 0) + n
+    if not codec_k1:
+        fail("socket: the codec launched no K1 in the party processes")
+    held = hold_at_shapes("socket", shapes)
+    codec_rows = time_at_shapes({"rns_montmul": codec_k1,
+                                 "rns_mont_exp": {}}, "socket",
+                                "the codec's shape")["rns_montmul"]
+    for k in RNS_PATH:
+        results.setdefault(k, {})["socket_launches"] = launches[k]
+    results["rns_montmul"]["codec_shapes"] = codec_rows
+    sock_it, loc_it = res.iteration_s, local_it_s
+    log(f"[socket] Table 1 over sockets (2 party processes on cuda, "
+        f"1024-bit keys, batch 2048): equal to the local run (losses, "
+        f"weights, bytes by tag, rounds {res.rounds}); measured = analytic "
+        f"bytes for every tag {dict(res.measured_meter.by_tag)}")
+    log(f"[socket] host s/iteration, socket | local: "
+        + "; ".join(f"it {i}: {a:.3f} | {b:.3f}"
+                    for i, (a, b) in enumerate(zip(sock_it, loc_it)))
+        + f"; mean {sum(sock_it) / len(sock_it):.3f} | "
+        f"{sum(loc_it) / len(loc_it):.3f}; cluster start (spawn, CUDA "
+        f"contexts, 1024-bit keygen, handshake) {start_s:.2f} s; "
+        f"{res.frames_sent} frames, {res.wire_overhead_bytes} B of "
+        f"prelude and header against {res.measured_meter.total_bytes} B "
+        f"of payload")
+    log(f"[socket] device memory in use (nvidia-smi, all processes): "
+        f"{mem_before:.0f} MiB before the spawn, {mem_during:.0f} MiB with "
+        f"2 party contexts up (+{mem_during - mem_before:.0f}); per party "
+        + "; ".join(f"{n}: peak allocated {r['peak_bytes'] / 2**20:.1f} "
+                    f"MiB, reserved {r['reserved_bytes'] / 2**20:.1f}"
+                    for n, r in reports.items()))
+    log(f"[socket] kernel launches in the party processes {launches}; "
+        f"local run {l_launches}; publish {out['publish_launches']}, swap "
+        f"{out['swap_launches']}; K1 in the codec by (batch, CH, shared): "
+        f"{ {str(k): v for k, v in codec_k1.items()} }; {held} outputs "
+        "held against the plain versions")
+    log(f"[socket] served {n_test} held-out rows over the cluster in "
+        f"{serve_s:.3f} s ({n_test / serve_s:.0f} requests/s at max_batch "
+        f"512), equal to the in-process engine; publish v0 {publish_ms:.1f} "
+        f"ms; swap to step 2 + {n_swap} rows {swap_s:.3f} s; infer.wx_share "
+        f"{wx[0]} B analytic = measured")
+    # -- a supervised run with a kill -----------------------------------
+    k3, y3 = fig2_parties(3)
+    cfg3 = VFLConfig(he_backend="paillier", checkpoint_every=1,
+                     **table1_kw())
+    ref3, _, _, _ = counted_run(lambda: VFLScheduler(k3, y3, cfg3).run())
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        t0 = time.perf_counter()
+        res3 = train_vfl_socket_resilient(k3, y3, cfg3, checkpoint_dir=root,
+                                          kill_plan={2: "B1"})
+        kill_s = time.perf_counter() - t0
+    require_same_model("socket kill and resume (against the uninterrupted "
+                       "run)", res3, ref3)
+    if res3.restarts != 1 or res3.resume_report.get("step") != 2:
+        fail(f"socket kill: restarts {res3.restarts}, resume report "
+             f"{res3.resume_report}")
+    if dict(res3.measured_meter.by_tag) != dict(res3.meter.by_tag):
+        fail("socket kill: measured bytes differ from analytic bytes")
+    log(f"[socket] k = 3, B1 killed at iteration 2: 1 restart, resumed at "
+        f"step {res3.resume_report['step']} (audit {res3.resume_report}), "
+        f"equal to the uninterrupted run; {kill_s:.1f} s in all: the killed "
+        f"attempt {res3.attempts_s[0]:.1f} s (to its forced teardown), the "
+        f"relaunch {res3.attempts_s[1]:.1f} s (spawn to teardown; its "
+        f"iterations {[round(t, 3) for t in res3.iteration_s]})")
+    # -- the wire benchmark ------------------------------------------------
+    rows, w_launches, w_wall, _ = counted_run(
+        lambda: bench_run.bench_rows("wire", smoke=False, device="cuda"))
+    require("wire bench", w_launches, positive=("rns_montmul",))
+    out.update(local_s_per_iter=loc_it, socket_s_per_iter=sock_it,
+               start_s=start_s, frames=res.frames_sent,
+               overhead_bytes=res.wire_overhead_bytes,
+               payload_bytes=res.measured_meter.total_bytes,
+               mem_before_mib=mem_before, mem_during_mib=mem_during,
+               party_peak_mib={n: r["peak_bytes"] / 2**20
+                               for n, r in reports.items()},
+               serve_rps=n_test / serve_s, publish_ms=publish_ms,
+               kill_run_s=kill_s, kill_attempts_s=res3.attempts_s,
+               wire_bench_s=w_wall,
+               wire_rows={r["name"]: r["us"] for r in rows})
+    results["_socket"] = out
+
+
 def phase_k1_shapes(results):
     """K1 at every (batch, CH, shared y) it launched at on the RNS path
     and path B, each in a CUDA graph beside an empty kernel's launch
@@ -1983,6 +2305,10 @@ def main(argv=None):
                     help="only run the resumable-session and scoring-"
                     "service phase (resume, publish, serve, hot swap at "
                     "Table 1 width)")
+    ap.add_argument("--socket", action="store_true",
+                    help="only run the socket phase (Table 1 over party "
+                    "processes, scoring and a hot swap over the cluster, "
+                    "a killed and resumed run, the wire benchmark)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2033,6 +2359,11 @@ def main(argv=None):
         log(f"[done] serve phase only, {time.perf_counter() - t_start:.1f} "
             f"s; card {card}; summary {json.dumps(results['_serve'])}")
         return
+    if args.socket:
+        phase_socket(results)
+        log(f"[done] socket phase only, {time.perf_counter() - t_start:.1f} "
+            f"s; card {card}; summary {json.dumps(results['_socket'])}")
+        return
     if args.paper:
         phase_paper(results, priv)
         log(f"[done] paper path only, {time.perf_counter() - t_start:.1f} "
@@ -2057,6 +2388,7 @@ def main(argv=None):
     phase_pipelined(results, priv)
     phase_paper(results, priv)
     phase_serve(results, mock)
+    phase_socket(results)
     phase_k1_shapes(results)
     phase_probe(results)
     phase_bench(results)
@@ -2072,7 +2404,8 @@ def main(argv=None):
                         "bound_ms": r.get("bound_ms"),
                         "bound_by": r.get("bound_by"), "library_ms": None})
         for extra in ("graph_ms", "shapes", "paper_launches",
-                      "serve_launches", "serve_shapes"):
+                      "serve_launches", "serve_shapes", "socket_launches",
+                      "codec_shapes"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card {card}; "

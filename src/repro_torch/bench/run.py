@@ -1,6 +1,6 @@
 """Benchmark entry point of the port: the ``kernels``, ``table1``,
-``table2``, ``fig1``, ``fig2``, ``checkpoint`` and ``serve`` modes of the
-reference's `benchmarks/run.py`.
+``table2``, ``fig1``, ``fig2``, ``checkpoint``, ``serve`` and ``wire``
+modes of the reference's `benchmarks/run.py`.
 
     python -m repro_torch.bench.run --only kernels [--smoke]
     python -m repro_torch.bench.run --guards
@@ -10,6 +10,7 @@ reference's `benchmarks/run.py`.
     python -m repro_torch.bench.run --only fig2 [--paper]
     python -m repro_torch.bench.run --only checkpoint [--smoke]
     python -m repro_torch.bench.run --only serve [--smoke]
+    python -m repro_torch.bench.run --only wire [--smoke]
     python -m repro_torch.bench.run --only table1 --device cpu --n 180 \
         --iters 3 --key-bits 192          # a check without the card
 
@@ -32,10 +33,13 @@ card its full run, the Paillier rows at 144-bit keys and at
 ``checkpoint``: the TrainState save/restore rows of
 `checkpoint_bench.run`; ``serve``: the scoring service's latency and
 throughput rows of `serve_bench.run` (each prediction held equal to the
-one-shot scorer; guard: batching must not lower throughput).  Full mode
-on the card writes them to ``BENCH_cuda_checkpoint.json`` /
-``BENCH_cuda_serve.json``; ``--smoke`` or ``--device cpu`` writes
-nothing.
+one-shot scorer; guard: batching must not lower throughput; full mode
+adds the socket row, party processes over TCP); ``wire``: the codec's
+encode/decode rows of `wire_bench.run` (each decode held equal to the
+message; full mode adds Table 1's 2048-ciphertext 1024-bit ``EncD``).
+Full mode on the card writes them to ``BENCH_cuda_checkpoint.json`` /
+``BENCH_cuda_serve.json`` / ``BENCH_cuda_wire.json``; ``--smoke`` or
+``--device cpu`` writes nothing.
 
 One difference from the reference: a guard violation is reported after
 the file is written, so a violation measured on the card is recorded,
@@ -62,6 +66,7 @@ TABLE_PATHS = {"table1": REPO_ROOT / "BENCH_cuda_table1.json",
 SCALING_PATH = REPO_ROOT / "BENCH_cuda_scaling.json"
 CHECKPOINT_PATH = REPO_ROOT / "BENCH_cuda_checkpoint.json"
 SERVE_PATH = REPO_ROOT / "BENCH_cuda_serve.json"
+WIRE_PATH = REPO_ROOT / "BENCH_cuda_wire.json"
 
 
 def _csv(name: str, us: float, derived: str = "") -> None:
@@ -206,12 +211,14 @@ def bench_fig2(paper: bool, device: str, key_bits: int = 1024) -> dict:
 
 
 def bench_rows(which: str, smoke: bool, device: str) -> list[dict]:
-    """The ``checkpoint`` or ``serve`` rows, printed; written, under the
-    header, to `CHECKPOINT_PATH` / `SERVE_PATH` in full mode on the card.
-    A serve guard violation exits non-zero after the file is written."""
-    from repro_torch.bench import checkpoint_bench, serve_bench
-    mod = checkpoint_bench if which == "checkpoint" else serve_bench
-    path = CHECKPOINT_PATH if which == "checkpoint" else SERVE_PATH
+    """The ``checkpoint``, ``serve`` or ``wire`` rows, printed; written,
+    under the header, to `CHECKPOINT_PATH` / `SERVE_PATH` / `WIRE_PATH`
+    in full mode on the card.  A serve guard violation exits non-zero
+    after the file is written."""
+    from repro_torch.bench import checkpoint_bench, serve_bench, wire_bench
+    mod, path = {"checkpoint": (checkpoint_bench, CHECKPOINT_PATH),
+                 "serve": (serve_bench, SERVE_PATH),
+                 "wire": (wire_bench, WIRE_PATH)}[which]
     rows = mod.run(smoke=smoke, device=device)
     for r in rows:
         _csv(r["name"], r["us"], r["derived"])
@@ -219,9 +226,11 @@ def bench_rows(which: str, smoke: bool, device: str) -> list[dict]:
     if smoke or device != "cuda":
         print(f"# {path.name} is written only in full mode on the card")
     else:
+        # a wire row's time is its `us`; the others carry their own ms
+        drop = ("derived",) if which == "wire" else ("us", "derived")
         report = {**header(f"bench_cuda_{which}/v1"),
-                  "rows": [{k: v for k, v in r.items()
-                            if k not in ("us", "derived")} for r in rows]}
+                  "rows": [{k: v for k, v in r.items() if k not in drop}
+                           for r in rows]}
         path.write_text(json.dumps(report, indent=1) + "\n")
         print(f"# wrote {path}")
     if failures:
@@ -234,11 +243,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="kernels",
                     choices=["kernels", "table1", "table2", "fig1",
-                             "fig2", "checkpoint", "serve"],
+                             "fig2", "checkpoint", "serve", "wire"],
                     help="which benchmark to run (default kernels)")
     ap.add_argument("--smoke", action="store_true",
-                    help="kernels, checkpoint, serve: tiny sizes; writes "
-                    "no file")
+                    help="kernels, checkpoint, serve, wire: tiny sizes; "
+                    "writes no file")
     ap.add_argument("--guards", action="store_true",
                     help=f"validate the guard rows of {BENCH_PATH.name} "
                          "and exit (no measurement)")
@@ -246,7 +255,7 @@ def main(argv=None) -> None:
                     help="table1/table2: the paper-scale configuration; "
                     "fig2: the full run")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="table1/table2/fig1/fig2/checkpoint/serve: "
+                    help="table1/table2/fig1/fig2/checkpoint/serve/wire: "
                          "where shares and ciphertexts live")
     ap.add_argument("--n", type=int, default=None,
                     help="table1/table2/fig1: cut the sample count")
@@ -269,7 +278,7 @@ def main(argv=None) -> None:
         bench_fig1(args.device, args.n, args.iters)
     elif args.only == "fig2":
         bench_fig2(args.paper, args.device, args.key_bits)
-    elif args.only in ("checkpoint", "serve"):
+    elif args.only in ("checkpoint", "serve", "wire"):
         bench_rows(args.only, args.smoke, args.device)
     else:
         bench_table(args.only, args.paper, args.device, args.n, args.iters,

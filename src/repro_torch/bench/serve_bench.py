@@ -1,7 +1,6 @@
 """Serving bench: p50/p99 request latency and throughput of the secure
 scoring service against micro-batch size × party count × crypto backend —
-the reference's `benchmarks/serve_bench.py` in-process rows and sizes, on
-the port (its socket row waits for the socket cluster).
+the reference's `benchmarks/serve_bench.py` rows and sizes, on the port.
 
 Every row scores the SAME request stream through `VFLScoringEngine`
 (admission → per-version serving caches → `infer.wx_share` shares →
@@ -10,7 +9,11 @@ prediction equal to the one-shot scorer (`GLMS[glm].predict(res.
 predict_wx(parties))`).  Each row also records the publish time of its
 engine (every party's [[w]] encrypted under its own key on `device`,
 synchronised).  The guard rows assert that batching pays: throughput at
-the largest batch must be at least that of singleton batches.
+the largest batch must be at least that of singleton batches.  Full mode
+adds the socket row: k = 3 party processes on `device` behind a
+`launch.cluster.SocketCluster`, the shares crossing TCP as
+`infer.wx_share` frames, with the wire identity (measured bytes ==
+analytic bytes == n·(k−1)·8) recorded and guarded.
 
     python -m repro_torch.bench.run --only serve [--smoke]
 """
@@ -74,9 +77,9 @@ def _drive(eng, reqs, batch):
 
 
 def _row(name, stats, k, backend, batch, n_req, publish_ms, device,
-         guard_vs=None):
+         guard_vs=None, mode="inproc", **extra):
     return {"name": name, "k": k, "backend": backend, "batch": batch,
-            "mode": "inproc", "n_req": n_req, "device": device,
+            "mode": mode, "n_req": n_req, "device": device, **extra,
             "p50_ms": round(stats["p50_ms"], 4),
             "p99_ms": round(stats["p99_ms"], 4),
             "throughput_rps": round(stats["throughput_rps"], 1),
@@ -123,16 +126,54 @@ def run(smoke: bool = False, device: str = "cuda") -> list[dict]:
             guard = f"{base}.b{batches[0]}" if b == batches[-1] else None
             rows.append(_row(f"{base}.b{b}", stats, k, backend, b, n_req,
                              publish_ms, device, guard_vs=guard))
+    if not smoke:
+        rows.append(_socket_row(n_req=48, batch=16, device=device))
     return rows
+
+
+def _socket_row(n_req: int, batch: int, device: str) -> dict:
+    """One distributed row: party processes over TCP, each prediction
+    held equal to the one-shot scorer, plus the wire invariant for the
+    serving tag (measured frame bytes == analytic meter)."""
+    from repro_torch.launch.cluster import SocketCluster
+    k, backend = 3, "mock"
+    parties, y, cfg, names, parts = _setup(k, backend, device)
+    with SocketCluster(parties, y, cfg) as cl:
+        res = cl.train()
+        t0 = time.perf_counter()
+        eng = VFLScoringEngine(cluster=cl, max_batch=batch)
+        publish_ms = (time.perf_counter() - t0) * 1e3
+        stats = _drive(eng, _requests(names, parts, n_req), batch)
+        meters = cl.fetch_meters()
+    rows_of = np.arange(n_req) % parts[0].shape[0]
+    want = glm_lib.GLMS[cfg.glm].predict(res.predict_wx(
+        [PartyData(nm, part[rows_of]) for nm, part in zip(names, parts)]))
+    got = np.array([r.prediction for r in
+                    sorted(eng.finished, key=lambda r: r.rid)])
+    if not np.array_equal(got, want):
+        raise RuntimeError("serve.socket: served predictions differ from "
+                           "the one-shot scorer")
+    analytic = meters["meter"].by_tag["infer.wx_share"]
+    measured = meters["measured"].by_tag["infer.wx_share"]
+    return _row(f"serve.socket.k{k}.{backend}.b{batch}", stats, k, backend,
+                batch, n_req, publish_ms, device, mode="socket",
+                wx_bytes_analytic=int(analytic),
+                wx_bytes_measured=int(measured),
+                wire_ok=bool(analytic == measured == n_req * (k - 1) * 8))
 
 
 def check_guards(rows: list[dict]) -> list[str]:
     """Guard rows: the largest batch's throughput must not fall below
     singleton batching (batching must amortize, or the admission
-    controller is broken)."""
+    controller is broken); socket rows must hold the wire identity."""
     by_name = {r["name"]: r for r in rows}
     failures = []
     for r in rows:
+        if "wire_ok" in r and not r["wire_ok"]:
+            failures.append(
+                f"{r['name']}: measured infer.wx_share bytes "
+                f"{r['wx_bytes_measured']} != analytic "
+                f"{r['wx_bytes_analytic']}")
         ref = r.get("guard_vs")
         if not ref:
             continue

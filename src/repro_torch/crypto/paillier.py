@@ -109,6 +109,27 @@ class PrivateKey:
     noise_table: object = None   # fixed_base.FixedBaseTable (h^ρ noise)
 
 
+@dataclasses.dataclass(frozen=True)
+class PeerKey:
+    """A peer's keypair as this party sees it: the public half only.
+
+    HE-backend key dicts mix `PrivateKey` (own) and `PeerKey` (everyone
+    else): every public-key operation reads `.pub`; decryption needs the
+    full `PrivateKey` and fails on a `PeerKey` (a party never decrypts
+    under a key it does not own)."""
+    pub: PublicKey
+
+
+def public_key_from_n(n: int, key_bits: int) -> PublicKey:
+    """Rebuild a `PublicKey` from the modulus a peer announced (the
+    distributed handshake ships only `n`; every derived constant is
+    recomputed locally)."""
+    mod_n = Modulus.make(n)
+    return PublicKey(n=n, key_bits=key_bits, mod_n=mod_n,
+                     mod_n2=Modulus.make(n * n),
+                     n_limbs=int_to_limbs(n, mod_n.L))
+
+
 def _crt_component(prime: int, n: int) -> CRTComponent:
     p2 = prime * prime
     mod_p2 = Modulus.make(p2)
@@ -367,3 +388,9 @@ def hom_sum(pub: PublicKey, c, axis: int = 0, *, engine: CryptoEngine
             merged = torch.cat([merged, c[2 * half:]], dim=0)
         c = merged
     return c[0]
+
+
+def ciphertext_bytes(pub: PublicKey) -> int:
+    """Wire size of one ciphertext (its serialized canonical form)."""
+    from repro_torch.core.comm import ciphertext_wire_bytes
+    return ciphertext_wire_bytes(pub.key_bits)

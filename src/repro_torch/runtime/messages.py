@@ -20,6 +20,10 @@ Message type ↔ paper mapping (also surfaced in README.md):
   P4.loss_share     Protocol 4                   loss share → CP0 → C
   infer.wx_share    serving path                 local score share X_p W_p
   flag              Alg. 1 line 27               C's stop-flag broadcast
+  ctrl              (conductor plane)            handshake, barriers, RPCs
+
+`Control` frames carry the socket cluster's orchestration (JSON
+payloads); they are never metered as protocol traffic.
 """
 from __future__ import annotations
 
@@ -178,3 +182,82 @@ class Flag(Message):
 
     def wire_bytes(self) -> int:
         return FLAG_BYTES
+
+
+@dataclasses.dataclass
+class Control(Message):
+    """Conductor-plane envelope of the distributed runtime (handshake,
+    iteration barriers, result collection, scoring RPCs, shutdown).
+
+    `kind` selects the action; `payload` is a JSON-able dict.  Control
+    frames ride the same socket framing as protocol messages but are not
+    protocol traffic: they never pass the metered `Transport.post`, so
+    per-tag bytes stay comparable with the single-process transports.
+    """
+    kind: str = ""
+    tag: ClassVar[str] = "ctrl"
+
+    def wire_bytes(self) -> int:
+        import json
+        return len(json.dumps(self.payload or {}).encode())
+
+
+def iteration_traffic(n_parties: int, nb: int, m_per_party: int,
+                      key_bits: int, glm: str = "logistic"
+                      ) -> tuple[dict[str, int], int]:
+    """One training iteration of Algorithm 1 as a synthetic message list
+    (fixed CP selection: C and B1).  Returns (bytes by tag, round count):
+    the rounds the socket conductor reports."""
+    names = ["C"] + [f"B{i}" for i in range(1, n_parties)]
+    cps, noncps = (names[0], names[1]), names[2:]
+    msgs: list[Message] = []
+    rounds = 0
+
+    def share_to_cps(owner, cls):
+        for cp in cps:
+            if cp != owner:
+                msgs.append(cls(owner, cp, n_elems=nb))
+
+    for p in names:                              # Protocol 1
+        share_to_cps(p, ZShare)
+    share_to_cps("C", YShare)
+    rounds += 1
+    if glm in ("poisson", "gamma"):
+        for p in names:
+            share_to_cps(p, EzShare)
+        for _ in range(n_parties - 1):           # chained Beaver products
+            msgs.append(BeaverOpen(cps[0], cps[1], n_elems=2 * nb))
+            msgs.append(BeaverOpen(cps[1], cps[0], n_elems=2 * nb))
+            rounds += 1
+    # Protocol 3
+    msgs.append(EncD(cps[0], cps[1], n_cts=nb, key_bits=key_bits))
+    msgs.append(EncD(cps[1], cps[0], n_cts=nb, key_bits=key_bits))
+    for p in noncps:
+        for cp in cps:
+            msgs.append(EncDBroadcast(cp, p, n_cts=nb, key_bits=key_bits))
+    for a, b in (cps, cps[::-1]):
+        msgs.append(MaskedGrad(a, b, n_cts=m_per_party, key_bits=key_bits))
+        msgs.append(UnmaskedShare(b, a, n_elems=m_per_party))
+    for p in noncps:
+        for cp in cps:
+            msgs.append(MaskedGrad(p, cp, n_cts=m_per_party,
+                                   key_bits=key_bits))
+            msgs.append(UnmaskedShare(cp, p, n_elems=m_per_party))
+    rounds += 3                                  # enc_d / masked / unmasked
+    # Protocol 4 joint Beaver products (logistic: t and t² in the loss;
+    # gamma: one in the gradient operator + one in the loss)
+    n_loss_muls = {"logistic": 2, "linear": 1, "poisson": 1, "gamma": 2}[glm]
+    for _ in range(n_loss_muls):
+        msgs.append(BeaverOpen(cps[0], cps[1], n_elems=2 * nb))
+        msgs.append(BeaverOpen(cps[1], cps[0], n_elems=2 * nb))
+        rounds += 1
+    msgs.append(LossShare(cps[1], cps[0], n_elems=1))
+    rounds += 1
+    for p in names[1:]:
+        msgs.append(Flag("C", p))
+    rounds += 1
+
+    by_tag: dict[str, int] = {}
+    for m in msgs:
+        by_tag[m.tag] = by_tag.get(m.tag, 0) + m.wire_bytes()
+    return by_tag, rounds

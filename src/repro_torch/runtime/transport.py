@@ -21,38 +21,37 @@ so `rounds` counts the protocol's communication rounds.
   under fixed CP selection; CP selection draws from a dedicated stream
   so the trajectory does not depend on thread interleaving.
 
+* `SocketTransport` — the real wire between party processes: every
+  posted envelope is encoded by the binary codec (`runtime.codec`) and
+  written to a TCP connection; per-connection reader threads decode
+  inbound frames into one event queue, which the hosting
+  `netparty.PartyServer` (or the conductor) drains.  Analytic metering
+  is that of the in-process transports; the measured payload bytes of
+  every frame sent are recorded per tag beside it, and frame overhead
+  apart, so the analytic accounting can be held against the wire.
+
 On the card every pool thread launches on the device's default stream,
 the stream the conductor thread launches on: stream order alone orders
 a tensor's producer before its consumer in another thread, and the
 caching allocator's reuse of a freed block, so no event or
 `record_stream` is needed (PERF.md §6 has the measurement).
-
-The socket transport of the reference waits for a later slice;
-`frame_overhead_bytes` (the wire codec's header cost) is kept here for
-it.
 """
 from __future__ import annotations
 
 import collections
-import struct
+import queue as _queue
+import socket as _socket
 import threading
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 
 import numpy as np
 
 from repro_torch.core.comm import CommMeter
+from repro_torch.runtime import messages as msg_lib
 from repro_torch.runtime import seeds
+from repro_torch.runtime.codec import (PRELUDE, CodecError,
+                                       frame_overhead_bytes)
 from repro_torch.runtime.messages import Message
-
-#: the wire codec's frame prelude: magic, version, header and payload
-#: lengths, crc (`repro/runtime/codec.py`, codec version 1)
-PRELUDE = struct.Struct("<3sBIQI")
-
-
-def frame_overhead_bytes(frame: bytes) -> int:
-    """Header + prelude bytes of an encoded frame (total − payload)."""
-    _, _, hlen, _, _ = PRELUDE.unpack_from(frame)
-    return PRELUDE.size + hlen
 
 
 class LockedRNG:
@@ -247,3 +246,238 @@ class PipelinedTransport(Transport):
                     futs[self._pool.submit(self._handle_locked, m)] = gen + 1
                     max_gen = max(max_gen, gen + 1)
         self.rounds += max_gen
+
+
+# ---------------------------------------------------------------------------
+# Socket transport — encoded frames over TCP between party processes
+# ---------------------------------------------------------------------------
+
+class PeerClosed(ConnectionError):
+    """A peer's connection closed or failed mid-protocol."""
+
+
+class SocketTransport(Transport):
+    """One node's endpoint of the distributed runtime.
+
+    Delivery is event-driven, not sweep-driven: `post` encodes the
+    envelope with the binary codec and writes it to the destination's
+    TCP connection (a message to oneself is a local handoff into the
+    event queue, never metered — the in-process transports' rule), and
+    every connection has a reader thread that decodes inbound frames
+    into `inbound`, which the hosting event loop
+    (`netparty.PartyServer` / `launch.cluster.SocketCluster`) drains.
+    `pump` therefore does not apply and raises.
+
+    Byte accounting:
+      * `meter`     — analytic `wire_bytes()` per tag (identical to the
+        in-process transports for the same protocol run);
+      * `measured`  — the encoded payload bytes per tag, as framed on
+        the wire;
+      * `overhead_bytes` / `frames_sent` — codec prelude + header cost,
+        reported apart (the paper's comm columns count payloads).
+
+    Control frames (`messages.Control`) ride the same connections via
+    `send_control` and touch neither meter.
+    """
+
+    def __init__(self, name: str, codec, meter: CommMeter | None = None):
+        super().__init__(meter)
+        self.name = name
+        self.codec = codec
+        self.measured = CommMeter()
+        self.overhead_bytes = 0
+        self.frames_sent = 0
+        self.inbound: _queue.Queue = _queue.Queue()
+        self._conns: dict[str, _socket.socket] = {}
+        self._send_locks: dict[str, threading.Lock] = {}
+        self._readers: dict[str, threading.Thread] = {}
+        self._hb_threads: list[threading.Thread] = []
+        self._stop_evt = threading.Event()
+        self._closing = False
+
+    # -- wiring -------------------------------------------------------------
+    def attach(self, peer: str, sock) -> None:
+        """Register an established connection to `peer` and start its
+        reader thread.  Re-attaching a peer REPLACES the link (reconnect
+        after a drop): the stale socket is closed, its reader dies on
+        the closed fd.  The reader blocks without a timeout — a mesh
+        link between two parties that exchange nothing for a long run
+        (two non-CPs) must not fake a peer loss; liveness bounds live on
+        the waiters (event-queue timeouts), not the wire."""
+        stale = self._conns.pop(peer, None)
+        if stale is not None:
+            _close_sock(stale)
+        old_reader = self._readers.pop(peer, None)
+        sock.settimeout(None)
+        self._conns[peer] = sock
+        self._send_locks[peer] = threading.Lock()
+        t = threading.Thread(target=self._reader, args=(peer, sock),
+                             name=f"wire-{self.name}-from-{peer}",
+                             daemon=True)
+        self._readers[peer] = t
+        t.start()
+        if old_reader is not None:       # exits on the closed stale fd
+            old_reader.join(timeout=2.0)
+
+    def detach(self, peer: str) -> None:
+        """Drop the link to `peer` and join its reader thread without
+        surfacing a `__closed__` event (the caller already knows)."""
+        sock = self._conns.pop(peer, None)
+        if sock is not None:
+            _close_sock(sock)
+        t = self._readers.pop(peer, None)
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=2.0)
+
+    def peers(self):
+        return list(self._conns)
+
+    # -- liveness -----------------------------------------------------------
+    def start_heartbeat(self, dst: str, interval_s: float) -> None:
+        """Ship `hb` control frames to `dst` every `interval_s` while the
+        transport is open.  Heartbeats keep idle links warm and give the
+        sender early dead-peer detection (a kill surfaces as a send
+        error on the next beat).  Receivers discard them without
+        extending their protocol deadlines (`dispatch.DispatchCore`);
+        they are never metered."""
+        def beat() -> None:
+            while not self._closing and dst in self._conns:
+                # Event.wait, not sleep: close() wakes the loop at once,
+                # so teardown joins it instead of leaking a thread
+                if self._stop_evt.wait(interval_s):
+                    return
+                if self._closing or dst not in self._conns:
+                    return
+                try:
+                    self.send_control(msg_lib.Control(
+                        self.name, dst, kind="hb"))
+                except Exception:            # noqa: BLE001 — link gone;
+                    return                   # waiters surface the loss
+
+        t = threading.Thread(target=beat, daemon=True,
+                             name=f"hb-{self.name}-to-{dst}")
+        self._hb_threads.append(t)
+        t.start()
+
+    # -- sending ------------------------------------------------------------
+    def _send_frame(self, dst: str, frame: bytes) -> None:
+        sock = self._conns.get(dst)
+        if sock is None:
+            raise PeerClosed(f"{self.name}: no connection to {dst!r}")
+        with self._send_locks[dst]:
+            sock.sendall(frame)
+
+    def _ship(self, dst: str, frame: bytes, reliable: bool = True) -> None:
+        """The egress seam: every encoded frame leaves through here,
+        after metering (a link layer overriding it can never touch the
+        meters).  `reliable=False` marks traffic (heartbeats) that may
+        be lost without recovery."""
+        self._send_frame(dst, frame)
+
+    def post(self, m: Message) -> None:
+        if m.dst == self.name:              # local handoff, never metered
+            self.inbound.put(m)
+            return
+        frame = self.codec.encode(m)
+        if m.src != m.dst:
+            self.account(m)
+            overhead = frame_overhead_bytes(frame)
+            self.measured.add(m.src, m.dst, m.tag, len(frame) - overhead)
+            self.overhead_bytes += overhead
+            self.frames_sent += 1
+        self._ship(m.dst, frame, reliable=True)
+
+    def send_control(self, m: Message) -> None:
+        """Ship a control frame without touching the protocol meters."""
+        if m.dst == self.name:
+            self.inbound.put(m)
+            return
+        frame = self.codec.encode(m)
+        self.overhead_bytes += len(frame)
+        self._ship(m.dst, frame,
+                   reliable=getattr(m, "kind", None) != "hb")
+
+    # -- receiving ----------------------------------------------------------
+    def _reader(self, peer: str, sock) -> None:
+        try:
+            while True:
+                self.inbound.put(recv_frame(sock, self.codec))
+        except Exception as e:               # noqa: BLE001 — surfaced below
+            # a deliberately detached/replaced link is not a peer loss:
+            # only the currently registered socket may report
+            if not self._closing and self._conns.get(peer) is sock:
+                self.inbound.put(msg_lib.Control(
+                    peer, self.name, kind="__closed__",
+                    payload={"error": f"{type(e).__name__}: {e}"}))
+
+    # -- bootstrap ----------------------------------------------------------
+    def recv_bootstrap(self, conn):
+        """Read one message from a connection that is not attached yet
+        (the handshake/hello reads happen before the peer is known).
+        Parties read bootstrap frames through their transport, never via
+        raw `recv_frame`, so a link layer can peel its envelope here."""
+        return recv_frame(conn, self.codec)
+
+    # -- lifecycle ----------------------------------------------------------
+    def pump(self, order=None) -> None:
+        raise NotImplementedError(
+            "SocketTransport is event-driven; the hosting PartyServer/"
+            "conductor drains .inbound instead of pump sweeps")
+
+    def flush(self, timeout: float = 5.0) -> bool:
+        """Wait until every shipped frame has left this host.  Sends are
+        synchronous, so there is nothing to wait for; call it before
+        `close` all the same when the last frames (bye, error) must
+        arrive."""
+        return True
+
+    def close(self) -> None:
+        self._closing = True
+        self._stop_evt.set()
+        for sock in self._conns.values():
+            _close_sock(sock)
+        self._conns.clear()
+        # no leaked threads: readers exit on their closed fds, beat
+        # loops on the stop event (skip the calling thread)
+        me = threading.current_thread()
+        for t in list(self._readers.values()) + self._hb_threads:
+            if t is not me and t.is_alive():
+                t.join(timeout=2.0)
+        self._readers.clear()
+        self._hb_threads.clear()
+
+
+def _close_sock(sock) -> None:
+    try:
+        sock.shutdown(_socket.SHUT_RDWR)
+    except OSError:
+        pass
+    try:
+        sock.close()
+    except OSError:
+        pass
+
+
+def _recv_exact(sock, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise PeerClosed("connection closed mid-frame")
+        buf += chunk
+    return bytes(buf)
+
+
+#: refuse frames whose declared sizes are absurd — corrupt or hostile
+#: preludes must not drive allocations
+MAX_FRAME_BYTES = 1 << 30
+
+
+def recv_frame(sock, codec):
+    """Read exactly one codec frame from a blocking socket."""
+    prelude = _recv_exact(sock, PRELUDE.size)
+    _, _, hlen, plen, _ = PRELUDE.unpack(prelude)
+    if hlen + plen > MAX_FRAME_BYTES:
+        raise CodecError(f"frame too large ({hlen + plen} bytes)")
+    body = _recv_exact(sock, hlen + plen)
+    return codec.decode(prelude + body)

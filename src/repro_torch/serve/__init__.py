@@ -1,6 +1,6 @@
 """The secure scoring service of the federated GLM: admission control
-(micro-batching), per-version serving caches, and the in-process
-`VFLScoringEngine` with hot model swap."""
+(micro-batching), per-version serving caches, and `VFLScoringEngine`
+(over in-process parties or a socket cluster) with hot model swap."""
 from repro_torch.serve.batching import MicroBatcher
 from repro_torch.serve.cache import (PartyServingCache, StaleCacheError,
                                      key_fingerprint_of)

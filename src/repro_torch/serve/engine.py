@@ -1,5 +1,5 @@
 """The secure scoring service of the federated GLM, on the trainer's
-actor/message/transport stack (in-process hosting).
+actor/message/transport stack.
 
 Requests carry vertically split feature rows (one slice per party).  An
 admission controller (`serve.batching.MicroBatcher`) closes micro-batches
@@ -22,13 +22,22 @@ flight, and every score request carries the version it is to be scored
 at (a straggler refuses with `StaleCacheError`), so no batch is ever
 scored by mixed versions.
 
+Two hosting modes:
+  * in-process (`parties=` actors + a local transport) — the trainer's
+    actors serve directly;
+  * distributed (`cluster=` a started `launch.cluster.SocketCluster`) —
+    every micro-batch is scored by the party processes: the conductor
+    fans the feature slices out as control frames and the score shares
+    travel party→C over the TCP mesh as encoded `infer.wx_share` frames;
+    publish and swap run in the party processes (each encrypts its [[w]]
+    on its own device).
+
 Service mode: `start()` runs the admission/scoring loop on a worker
 thread (deadline batches close without client calls; a swap is then
 applied, and its encryptions launched, from that thread); `stop()` drains
 and joins.  Synchronous use (`run()`) drains inline.
 
-The reference's distributed hosting (`cluster=`, a socket cluster of
-party processes) and its LM `ServeEngine` are not ported yet.
+The reference's LM `ServeEngine` is not ported yet.
 """
 from __future__ import annotations
 
@@ -76,16 +85,20 @@ class ScoreRequest:
 
 
 class VFLScoringEngine:
-    """Long-lived secure scoring service over in-process party actors.
+    """Long-lived secure scoring service over party actors or party
+    processes.
 
     Args:
-      parties: the actors, C first (e.g. `VFLScheduler.parties`); each
-        publishes `version` at construction.
+      parties: the in-process actors, C first (e.g.
+        `VFLScheduler.parties`); each publishes `version` at
+        construction.
       transport: a `runtime` transport (`LocalTransport` when None).
       max_batch / max_wait_s / clock: the `MicroBatcher`'s triggers.
-      cluster: the reference's socket-cluster hosting; not ported.
-      checkpoint_dir: root of the per-party checkpoint slices a hot swap
-        loads (`checkpoint.party_checkpoint_dir`).
+      cluster: a started `launch.cluster.SocketCluster` instead of
+        `parties` (its parties publish `version` at construction and
+        load their own checkpoint slices on a hot swap).
+      checkpoint_dir: root of the per-party checkpoint slices an
+        in-process hot swap loads (`checkpoint.party_checkpoint_dir`).
       version: the model version the current weights serve as.
     """
 
@@ -93,27 +106,31 @@ class VFLScoringEngine:
                  cluster=None, max_wait_s: float = 0.0,
                  clock=time.monotonic, checkpoint_dir: Optional[str] = None,
                  version: int = 0):
-        if cluster is not None:
-            raise NotImplementedError(
-                "VFLScoringEngine(cluster=...) — scoring over a socket "
-                "cluster of party processes — is not ported yet "
-                "(ROADMAP.md Queue 1 item 5); pass in-process parties=")
-        if parties is None:
-            raise ValueError("pass the in-process party actors (parties=)")
-        if not isinstance(parties[0], LabelParty):
-            raise ValueError("parties[0] must be the label party C "
-                             "(e.g. from a VFLScheduler)")
-        self.parties = list(parties)
-        self.label = self.parties[0]
-        self.names = [p.name for p in self.parties]
-        self.transport = transport if transport is not None \
-            else LocalTransport()
-        self.transport.bind(self.parties)
-        for p in self.parties:
-            p.publish_version(version)
+        if (parties is None) == (cluster is None):
+            raise ValueError("pass either in-process actors (parties=) or "
+                             "a started SocketCluster (cluster=)")
+        self.cluster = cluster
+        if parties is not None:
+            if not isinstance(parties[0], LabelParty):
+                raise ValueError("parties[0] must be the label party C "
+                                 "(e.g. from a VFLScheduler)")
+            self.parties = list(parties)
+            self.label = self.parties[0]
+            self.names = [p.name for p in self.parties]
+            self.transport = transport if transport is not None \
+                else LocalTransport()
+            self.transport.bind(self.parties)
+            for p in self.parties:
+                p.publish_version(version)
+        else:
+            self.parties = None
+            self.label = None
+            self.names = list(cluster.names)
+            self.transport = cluster.tp
+            cluster.publish_model(version)
         self.max_batch = max_batch
         self.model_version = int(version)
-        self.checkpoint_dir = checkpoint_dir   # hot-swap source
+        self.checkpoint_dir = checkpoint_dir   # in-process hot-swap source
         self.clock = clock
         self.batcher = MicroBatcher(max_batch=max_batch,
                                     max_wait_s=max_wait_s, clock=clock)
@@ -197,6 +214,8 @@ class VFLScoringEngine:
     def _score_batch(self, batch: list, version: int) -> np.ndarray:
         X = {name: np.stack([r.features[name] for r in batch])
              for name in self.names}
+        if self.cluster is not None:
+            return self.cluster.score(X, version=version)
         senders = [n for n in self.names if n != self.label.name]
         self.label.begin_inference(len(batch), senders)
         for p in self.parties:
@@ -217,6 +236,11 @@ class VFLScoringEngine:
                                    "batch is in flight")
             self._pending_swap = None
         step, v = pend
+        if self.cluster is not None:
+            self.cluster.swap_model(step, version=v)
+            with self._lock:
+                self.model_version = v
+            return
         if self.checkpoint_dir is None:
             raise RuntimeError("in-process hot swap needs checkpoint_dir=")
         for p in self.parties:

@@ -448,8 +448,10 @@ def test_concurrent_save_async_and_restore(tmp_path):
 
 
 def test_new_modules_import_without_jax():
-    """The checkpoint and serving modules, their benchmarks and the chip
-    smoke import with `jax`, `repro` and `ml_dtypes` unimportable."""
+    """The checkpoint, serving and wire modules (codec, socket transport,
+    party server, cluster launcher, handoff plan), their benchmarks and
+    the chip smoke import with `jax`, `repro` and `ml_dtypes`
+    unimportable."""
     import subprocess
     code = (
         "import sys\n"
@@ -461,6 +463,11 @@ def test_new_modules_import_without_jax():
         "import repro_torch.checkpoint, repro_torch.serve\n"
         "import repro_torch.bench.checkpoint_bench\n"
         "import repro_torch.bench.serve_bench, repro_torch.bench.run\n"
+        "import repro_torch.runtime.codec, repro_torch.runtime.dispatch\n"
+        "import repro_torch.runtime.policy, repro_torch.runtime.netparty\n"
+        "import repro_torch.runtime.transport, repro_torch.launch.cluster\n"
+        "import repro_torch.distributed.elastic\n"
+        "import repro_torch.bench.wire_bench\n"
         "import chip_smoke\n"
         "print('ok')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

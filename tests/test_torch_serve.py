@@ -12,7 +12,8 @@ party's serving half against the JAX package's, on the CPU.
   the one-shot scorer's bit for bit, with the same versions, batches and
   `infer.wx_share` bytes;
 * `FeatureKeyError`, `busy` while a batch is in flight, the deadline
-  service mode on a fake clock, `cluster=` refused;
+  service mode on a fake clock, `cluster=` hosting on a stand-in
+  cluster;
 * the in-process hot swap with requests still queued, loading the party
   checkpoint slices the reference's `save_checkpoint` wrote, equal to
   the reference engine's swap, and a swap applied from the service's
@@ -441,8 +442,40 @@ def test_deadline_service_mode_fake_clock():
 
 
 def test_cluster_hosting_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        VFLScoringEngine(cluster=object())
+    """Socket-cluster hosting is ported now: with `cluster=` the engine
+    publishes, scores and swaps through the cluster's calls (the party
+    processes themselves are tests/test_torch_socket.py's); both hosting
+    modes at once, or neither, are refused."""
+    class FakeCluster:
+        names = ["C", "B1"]
+        tp = object()
+
+        def __init__(self):
+            self.calls = []
+
+        def publish_model(self, version):
+            self.calls.append(("publish", version))
+
+        def score(self, X, version=None):
+            self.calls.append(("score", version, sorted(X)))
+            return X["C"].sum(axis=1)
+
+        def swap_model(self, step, version):
+            self.calls.append(("swap", step, version))
+
+    cl = FakeCluster()
+    eng = VFLScoringEngine(cluster=cl, max_batch=2, version=3)
+    assert eng.names == ["C", "B1"] and eng.transport is cl.tp
+    for i in range(3):
+        eng.submit({"C": np.full(2, float(i)), "B1": np.zeros(1)})
+    assert eng.swap_model(5) == 4
+    done = eng.run()
+    assert [r.prediction for r in done] == [0.0, 2.0, 4.0]
+    assert {r.model_version for r in done} == {4}
+    assert cl.calls == [("publish", 3), ("swap", 5, 4),
+                        ("score", 4, ["B1", "C"]), ("score", 4, ["B1", "C"])]
+    with pytest.raises(ValueError, match="either"):
+        VFLScoringEngine(parties=[object()], cluster=cl)
     with pytest.raises(ValueError, match="parties"):
         VFLScoringEngine()
 
