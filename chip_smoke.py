@@ -119,6 +119,24 @@ k = 3 run (B1's columns copied) whose B1 is killed at iteration 2,
 resumed by `train_vfl_socket_resilient` after one restart and equal to
 the uninterrupted run; and the wire benchmark (`python -m
 repro_torch.bench.run --only wire`, written to `BENCH_cuda_wire.json`).
+Then the chaos link layer (`phase_chaos`, also alone as ``python3
+chip_smoke.py --chaos``), every endpoint a `runtime.chaos.FaultyTransport`:
+against the local run on the card and a fault-free socket run of the
+same Table 1 configuration, (a) the run under the reference tests'
+gauntlet profile (drops, duplicates, reorders, resets, and a partition
+on every directed link) with zlib on the wire, equal to the local run
+(losses, weights, bytes by tag, rounds; measured = analytic bytes),
+drops, retransmits and partitions injected and no link dead, frames
+deflated, K2, K3 and the protocol's K1 launched in the party processes
+exactly as in the fault-free socket run and the codec's K1 that run's
+plus one a ciphertext frame decoded and then discarded as a duplicate
+(`counted_party` counts those), K1-K3 held against their plain versions
+at every shape launched; (b) the run under `wan20` shaping only, its
+s/iteration beside the fault-free socket run's and rounds × (latency +
+jitter / 2); (c) a k = 3 mock run whose B1 is killed at iteration 2
+under the gauntlet, equal to the uninterrupted run after one restart;
+(d) the WAN benchmark (`python -m repro_torch.bench.run --only wan`,
+written to `BENCH_cuda_wan.json`).
 Device time is the sum over the profiler's device events (a torch op's
 own event repeats its kernels' time).
 """
@@ -1886,19 +1904,28 @@ def phase_serve(results, mock):
     results["_serve"] = out
 
 
+#: the message types whose frames carry Paillier ciphertexts: each
+#: encode and each decode of one is one K1 launch in the codec
+CT_FRAMES = ("EncD", "EncDBroadcast", "MaskedGrad")
+
+
 def counted_party(name, X, y, ready, host, checkpoint_dir, wire,
                   device="cuda"):
-    """Spawn target of phase_socket's clusters: the port's party server
-    (`runtime.netparty.run_party_server`), its kernel launches counted
-    in this process — all of them, those of its publishes, swaps and
-    scoring requests, and K1's launched inside the codec (its
-    Montgomery boundary, by shape) — and sent back with its peak device
-    memory over the ready queue after the run: out of band, never in a
-    frame."""
+    """Spawn target of phase_socket's and phase_chaos's clusters: the
+    port's party server (`runtime.netparty.run_party_server`), its kernel
+    launches counted in this process — all of them, those of its
+    publishes, swaps and scoring requests, and K1's launched inside the
+    codec (its Montgomery boundary, by shape) — and sent back with its
+    peak device memory over the ready queue after the run: out of band,
+    never in a frame.  It also counts the codec's ciphertext encodes and
+    decodes, and under the chaos link layer the ciphertext frames the
+    ARQ discarded as duplicates after decoding them (one K1 launch each)
+    and the ciphertext frames sent deflated."""
     import collections
     import threading
     import torch
     from repro_torch.kernels import build
+    from repro_torch.runtime import chaos as chaos_lib
     from repro_torch.runtime import codec as codec_lib
     from repro_torch.runtime import netparty
     ws = wrappers()
@@ -1906,6 +1933,7 @@ def counted_party(name, X, y, ready, host, checkpoint_dir, wire,
     inside = threading.local()
     lock = threading.Lock()
     codec_k1 = collections.Counter()
+    frames = collections.Counter()
     phases = collections.defaultdict(collections.Counter)
     count_launch = build.count_launch
 
@@ -1915,13 +1943,17 @@ def counted_party(name, X, y, ready, host, checkpoint_dir, wire,
             with lock:
                 codec_k1[shape] += 1
 
-    def in_codec(method):
+    def in_codec(method, what):
         def run(self, *a, **kw):
             inside.codec = True
+            t0 = time.perf_counter()
             try:
                 return method(self, *a, **kw)
             finally:
                 inside.codec = False
+                with lock:
+                    frames[what] += 1
+                    frames[f"{what}_s"] += time.perf_counter() - t0
         return run
 
     def phased(method, phase):
@@ -1934,10 +1966,35 @@ def counted_party(name, X, y, ready, host, checkpoint_dir, wire,
                     phases[phase][k] += w.launches - before[k]
         return run
 
+    faulty = chaos_lib.FaultyTransport
+    ingest, post = faulty._rx_ingest, faulty.post
+
+    def counted_ingest(self, peer, seq, m):
+        # one reader thread a peer (the bootstrap read comes before it),
+        # so this peer's receive state is read without a race
+        rx = self._rx_state(peer)
+        if (seq < rx.next or seq in rx.buf) \
+                and type(m).__name__ in CT_FRAMES:
+            with lock:
+                frames["dup_ct"] += 1
+        return ingest(self, peer, seq, m)
+
+    def counted_post(self, m):
+        before = self.chaos_stats.deflated_frames
+        post(self, m)
+        kind = type(m).__name__
+        if kind in CT_FRAMES:
+            with lock:
+                frames[f"{kind}_sent"] += 1
+                frames[f"{kind}_deflated"] += \
+                    self.chaos_stats.deflated_frames - before
+
     build.count_launch = counted
-    for meth in ("_ct_payload", "_ct_from_payload"):
+    for meth, what in (("_ct_payload", "ct_encodes"),
+                       ("_ct_from_payload", "ct_decodes")):
         setattr(codec_lib.Codec, meth,
-                in_codec(getattr(codec_lib.Codec, meth)))
+                in_codec(getattr(codec_lib.Codec, meth), what))
+    faulty._rx_ingest, faulty.post = counted_ingest, counted_post
     server = netparty.PartyServer
     for meth, phase in (("_run_publish", "publish"), ("_run_swap", "swap"),
                         ("_run_score", "score")):
@@ -1949,6 +2006,7 @@ def counted_party(name, X, y, ready, host, checkpoint_dir, wire,
         "phases": {p: dict(c) for p, c in phases.items()},
         "shapes": {k: dict(ws[k].shapes) for k in RNS_PATH},
         "codec_k1": dict(codec_k1),
+        "frames": dict(frames),
         "peak_bytes": torch.cuda.max_memory_allocated()
         if torch.cuda.is_available() else 0,
         "reserved_bytes": torch.cuda.max_memory_reserved()
@@ -2086,11 +2144,10 @@ def phase_socket(results):
                 fail("socket: scores after the hot swap differ from the "
                      "in-process engine's")
         reports = party_reports(cl, len(parties))
-    launches = {k: sum(r["launches"][k] for r in reports.values())
-                for k in KERNELS}
-    require("socket (party processes)", launches,
-            positive=("rns_montmul", "rns_mont_exp", "rns_he_matvec"),
-            zero=OFF_RNS_PATH)
+    sc = socket_counts("socket (party processes)", reports)
+    launches, shapes, codec_k1 = sc["launches"], sc["shapes"], \
+        sc["codec_shapes"]
+    require("socket (party processes)", launches, positive=RNS_PATH)
     for phase in ("publish", "swap"):
         n = {k: sum(r["phases"].get(phase, {}).get(k, 0)
                     for r in reports.values()) for k in KERNELS}
@@ -2101,14 +2158,6 @@ def phase_socket(results):
                      for r in reports.values()) for k in KERNELS}
     if any(scored.values()):
         fail(f"socket: scoring launched kernels {scored}")
-    shapes = {k: {} for k in RNS_PATH}
-    codec_k1 = {}
-    for r in reports.values():
-        for k in RNS_PATH:
-            for key, n in r["shapes"][k].items():
-                shapes[k][key] = shapes[k].get(key, 0) + n
-        for key, n in r["codec_k1"].items():
-            codec_k1[key] = codec_k1.get(key, 0) + n
     if not codec_k1:
         fail("socket: the codec launched no K1 in the party processes")
     held = hold_at_shapes("socket", shapes)
@@ -2187,6 +2236,270 @@ def phase_socket(results):
                wire_bench_s=w_wall,
                wire_rows={r["name"]: r["us"] for r in rows})
     results["_socket"] = out
+
+
+#: the reference tests' gauntlet profile (`tests/test_chaos.py`): every
+#: fault kind on, and every directed link partitioned once, for 0.15 s at
+#: its 3rd reliable first-send
+GAUNTLET = dict(seed=42, latency_s=0.001, jitter_s=0.0005, drop_p=0.06,
+                dup_p=0.04, reorder_p=0.08, reset_p=0.01, partition_p=1.0,
+                partition_at=3, partition_s=0.15)
+
+
+def counted_socket_run(parties, y, cfg, chaos=None):
+    """A counting cluster (`counted_party`) trained to its end: (the
+    result, each party's report, the cluster's start seconds)."""
+    t0 = time.perf_counter()
+    cl = counting_cluster()(parties, y, cfg, chaos=chaos)
+    with cl:
+        start_s = time.perf_counter() - t0
+        res = cl.train()
+    return res, party_reports(cl, len(parties)), start_s
+
+
+def summed(reports: dict, key: str) -> dict:
+    """The parties' `key` dicts summed entry by entry."""
+    out = {}
+    for r in reports.values():
+        for k, v in r[key].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def socket_counts(label: str, reports: dict) -> dict:
+    """The launches of a socket run's party processes summed over the
+    parties and split: K1 in the codec (by shape, and in all) and in the
+    protocol, K2, K3, the shapes launched at; each codec K1 launch must
+    be a ciphertext encode or decode, and none of K4-K8 may launch."""
+    launches = {k: sum(r["launches"][k] for r in reports.values())
+                for k in KERNELS}
+    require(label, launches, zero=OFF_RNS_PATH)
+    frames = summed(reports, "frames")
+    codec_shapes = summed(reports, "codec_k1")
+    codec = sum(codec_shapes.values())
+    if codec != frames.get("ct_encodes", 0) + frames.get("ct_decodes", 0):
+        fail(f"{label}: {codec} K1 launches in the codec against "
+             f"{frames.get('ct_encodes', 0)} ciphertext encodes and "
+             f"{frames.get('ct_decodes', 0)} decodes")
+    return dict(launches=launches, codec_k1=codec,
+                codec_shapes=codec_shapes,
+                protocol_k1=launches["rns_montmul"] - codec, frames=frames,
+                shapes={k: summed({n: r["shapes"] for n, r in
+                                   reports.items()}, k)
+                        for k in RNS_PATH})
+
+
+def require_chaos_counts(label: str, got: dict, plain: dict) -> None:
+    """A chaos run's party launches against the fault-free socket run's:
+    K2, K3 and the protocol's K1 exactly; the codec's K1 the fault-free
+    count plus one launch a ciphertext frame decoded and then discarded
+    as a duplicate (counted in the parties)."""
+    for k in ("rns_mont_exp", "rns_he_matvec"):
+        if got["launches"][k] != plain["launches"][k]:
+            fail(f"{label}: {k} launched {got['launches'][k]} times, the "
+                 f"fault-free socket run {plain['launches'][k]}")
+    if got["protocol_k1"] != plain["protocol_k1"]:
+        fail(f"{label}: the protocol launched K1 {got['protocol_k1']} "
+             f"times, the fault-free socket run {plain['protocol_k1']}")
+    dups = got["frames"].get("dup_ct", 0)
+    if got["codec_k1"] != plain["codec_k1"] + dups:
+        fail(f"{label}: K1 in the codec {got['codec_k1']} times, expected "
+             f"the fault-free {plain['codec_k1']} + {dups} duplicate "
+             "ciphertext decodes")
+
+
+def require_faults_absorbed(label: str, res) -> dict:
+    total = res.chaos_report["total"]
+    if not (total["drops"] > 0 and total["retransmits"] > 0
+            and total["partitions"] >= 1 and total["budget_deaths"] == 0):
+        fail(f"{label}: the gauntlet did not inject and absorb its faults: "
+             f"{total}")
+    return total
+
+
+def phase_chaos(results):
+    """The chaos link layer on the card (`runtime.chaos.FaultyTransport`
+    on every endpoint).  References: the local run on the card and the
+    fault-free socket run at Table 1 width (2 parties × 12 features,
+    batch 2048, 1024-bit keys, 3 iterations).  (a) the same run under
+    the gauntlet with zlib: equal to the local run (losses, weights,
+    bytes by tag, rounds), measured = analytic bytes, drops,
+    retransmits and a partition injected, no link dead, frames deflated;
+    K2, K3 and the protocol's K1 launched in the party processes as in
+    the fault-free socket run, the codec's K1 that run's plus one a
+    duplicate ciphertext decode, K1-K3 held against their plain versions
+    at every shape launched.  (b) the same run under `wan20` shaping
+    only: s/iteration beside the fault-free socket run and rounds ×
+    (latency + jitter / 2).  (c) k = 3 mock, B1 killed at iteration 2,
+    under the gauntlet: equal to the uninterrupted run after one
+    restart.  (d) the WAN benchmark (`BENCH_cuda_wan.json`)."""
+    import dataclasses
+    from repro_torch.bench import run as bench_run
+    from repro_torch.bench import tables
+    from repro_torch.core.trainer import VFLConfig
+    from repro_torch.launch.cluster import train_vfl_socket_resilient
+    from repro_torch.runtime import VFLScheduler
+    from repro_torch.runtime.chaos import PROFILES, ChaosProfile
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    parties, y = table1_parties()
+    cfg = VFLConfig(he_backend="paillier", **table1_kw())
+    gauntlet = ChaosProfile(**GAUNTLET)
+    out = {}
+
+    def same_as_local(label, res):
+        try:
+            tables.require_equal(f"{label} (against the local run)", res,
+                                 local)
+        except RuntimeError as e:
+            fail(str(e))
+        if dict(res.measured_meter.by_tag) != dict(res.meter.by_tag):
+            fail(f"{label}: measured bytes {res.measured_meter.by_tag} != "
+                 f"analytic {res.meter.by_tag}")
+
+    # -- the fault-free references ------------------------------------------
+    (local, local_it), l_launches, _, _ = counted_run(
+        lambda: stepped_run(VFLScheduler(parties, y, cfg)))
+    plain, plain_rep, plain_start = counted_socket_run(parties, y, cfg)
+    same_as_local("chaos: fault-free socket run", plain)
+    pc = socket_counts("chaos: fault-free socket run", plain_rep)
+    for k in RNS_PATH:
+        got = pc["protocol_k1"] if k == "rns_montmul" else pc["launches"][k]
+        if got != l_launches[k]:
+            fail(f"chaos: fault-free socket run launched {k} {got} times "
+                 f"outside the codec, the local run {l_launches[k]}")
+    # -- (a) Table 1 under the gauntlet, zlib on the wire --------------------
+    res_a, rep_a, start_a = counted_socket_run(
+        parties, y, dataclasses.replace(cfg, wire_compression="zlib"),
+        chaos=gauntlet)
+    same_as_local("chaos (a): gauntlet + zlib", res_a)
+    total = require_faults_absorbed("chaos (a)", res_a)
+    if total["deflated_frames"] <= 0:
+        fail(f"chaos (a): no frame went out deflated: {total}")
+    ca = socket_counts("chaos (a)", rep_a)
+    require("chaos (a) (party processes)", ca["launches"],
+            positive=RNS_PATH)
+    require_chaos_counts("chaos (a)", ca, pc)
+    held = hold_at_shapes("chaos", ca["shapes"])
+    for k in KERNELS:
+        results.setdefault(k, {})["chaos_launches"] = ca["launches"][k]
+    fa = ca["frames"]
+    log(f"[chaos] (a) Table 1 under the gauntlet {json.dumps(GAUNTLET)} "
+        f"with zlib: equal to the local run (losses, weights, bytes by "
+        f"tag, rounds {res_a.rounds}); measured = analytic bytes by tag; "
+        f"link layer {json.dumps(total)}")
+    log(f"[chaos] (a) by endpoint " + json.dumps(
+        res_a.chaos_report["by_endpoint"]))
+    log(f"[chaos] (a) launches in the party processes {ca['launches']} "
+        f"(fault-free socket run {pc['launches']}, local run "
+        f"{l_launches}); K1 protocol {ca['protocol_k1']} = "
+        f"{pc['protocol_k1']}, codec {ca['codec_k1']} = fault-free "
+        f"{pc['codec_k1']} + {fa.get('dup_ct', 0)} duplicate ciphertext "
+        f"decodes; ciphertext encodes {fa.get('ct_encodes', 0)} "
+        f"({fa.get('ct_encodes_s', 0.0):.3f} s in the codec), decodes "
+        f"{fa.get('ct_decodes', 0)} ({fa.get('ct_decodes_s', 0.0):.3f} "
+        f"s); fault-free decodes {pc['frames'].get('ct_decodes', 0)} "
+        f"({pc['frames'].get('ct_decodes_s', 0.0):.3f} s); {held} outputs "
+        "held against the plain versions")
+    log(f"[chaos] (a) ciphertext frames sent deflated: " + "; ".join(
+        f"{t} {fa.get(f'{t}_deflated', 0)} of {fa.get(f'{t}_sent', 0)}"
+        for t in CT_FRAMES) + f"; all frames deflated "
+        f"{total['deflated_frames']}, {total['deflate_saved_bytes']} B "
+        "saved")
+    log(f"[chaos] (a) host s/iteration, gauntlet | fault-free socket | "
+        f"local: " + "; ".join(
+            f"it {i}: {a:.3f} | {b:.3f} | {c:.3f}" for i, (a, b, c) in
+            enumerate(zip(res_a.iteration_s, plain.iteration_s, local_it)))
+        + f"; cluster start {start_a:.2f} | {plain_start:.2f} s")
+    # -- (b) Table 1 under wan20 shaping only ---------------------------------
+    wan = PROFILES["wan20"]
+    res_b, rep_b, start_b = counted_socket_run(parties, y, cfg,
+                                               chaos="wan20")
+    same_as_local("chaos (b): wan20", res_b)
+    cb = socket_counts("chaos (b)", rep_b)
+    require_chaos_counts("chaos (b)", cb, pc)
+    per_round = wan.latency_s + wan.jitter_s / 2
+    rounds_it = res_b.rounds // res_b.n_iter
+
+    def steady(ts):                   # iterations 1-2: past the cold one
+        return sum(ts[1:]) / len(ts[1:])
+    tb = res_b.chaos_report["total"]
+    log(f"[chaos] (b) Table 1 under wan20 (latency {wan.latency_s} s, "
+        f"jitter {wan.jitter_s} s): equal to the local run; host "
+        f"s/iteration wan20 | fault-free socket: " + "; ".join(
+            f"it {i}: {a:.3f} | {b:.3f}" for i, (a, b) in
+            enumerate(zip(res_b.iteration_s, plain.iteration_s)))
+        + f"; iterations 1-2 {steady(res_b.iteration_s):.4f} against "
+        f"{steady(plain.iteration_s):.4f} + {rounds_it} rounds x "
+        f"{per_round} s = "
+        f"{steady(plain.iteration_s) + rounds_it * per_round:.4f}"
+        f"; link layer {json.dumps(tb)}; duplicate ciphertext decodes "
+        f"{cb['frames'].get('dup_ct', 0)}")
+    # -- (c) a killed run under the gauntlet (mock, k = 3) -----------------
+    k3, y3 = fig2_parties(3)
+    cfg3 = VFLConfig(he_backend="mock", checkpoint_every=1, **table1_kw())
+    ref3 = VFLScheduler(k3, y3, cfg3).run()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        t0 = time.perf_counter()
+        res_c = train_vfl_socket_resilient(k3, y3, cfg3, checkpoint_dir=root,
+                                           kill_plan={2: "B1"},
+                                           chaos=gauntlet)
+        kill_s = time.perf_counter() - t0
+    require_same_model("chaos (c): killed under the gauntlet (against the "
+                       "uninterrupted run)", res_c, ref3)
+    if res_c.restarts != 1 or res_c.resume_report.get("step") != 2:
+        fail(f"chaos (c): restarts {res_c.restarts}, resume report "
+             f"{res_c.resume_report}")
+    if dict(res_c.measured_meter.by_tag) != dict(res_c.meter.by_tag):
+        fail("chaos (c): measured bytes differ from analytic bytes")
+    tc = require_faults_absorbed("chaos (c)", res_c)
+    log(f"[chaos] (c) k = 3 mock, B1 killed at iteration 2 under the "
+        f"gauntlet: 1 restart, resumed at step 2, equal to the "
+        f"uninterrupted run; {kill_s:.1f} s in all (attempts "
+        f"{[round(t, 1) for t in res_c.attempts_s]} s; relaunch "
+        f"iterations {[round(t, 3) for t in res_c.iteration_s]}); the "
+        f"relaunch's link layer {json.dumps(tc)}")
+    # -- (d) the WAN benchmark ------------------------------------------------
+    t0 = time.perf_counter()
+    report = bench_run.bench_wan(smoke=False, device="cuda")
+    wan_s = time.perf_counter() - t0
+    base_it = steady(report["rows"][0]["iteration_s"])
+    for r in report["rows"]:
+        p = PROFILES.get(r["profile"], PROFILES["off"])
+        log(f"[chaos] (d) {r['name']}: rounds {r['rounds']}, measured "
+            f"{r['measured_s']:.4f} s, analytic comm "
+            f"{r['analytic_comm_s']:.4f} s, extra over base "
+            f"{r['wan_extra_s']:.4f} s; iterations "
+            f"{[round(t, 4) for t in r['iteration_s']]} s, after the "
+            f"first {steady(r['iteration_s']):.4f} s each: "
+            f"{steady(r['iteration_s']) - base_it:+.4f} s over base "
+            f"against {r['rounds'] // r['iters']} rounds x "
+            f"{p.latency_s + p.jitter_s / 2} s")
+    out.update(
+        local_s_per_iter=local_it, socket_s_per_iter=plain.iteration_s,
+        gauntlet_s_per_iter=res_a.iteration_s,
+        wan20_s_per_iter=res_b.iteration_s, wan20_rounds_per_iter=rounds_it,
+        wan20_model_s_per_iter=steady(plain.iteration_s)
+        + rounds_it * per_round,
+        start_s=dict(plain=plain_start, gauntlet=start_a, wan20=start_b),
+        gauntlet_total=total, wan20_total=tb, killed_total=tc,
+        codec_k1=dict(plain=pc["codec_k1"], gauntlet=ca["codec_k1"],
+                      wan20=cb["codec_k1"]),
+        dup_ct=dict(gauntlet=fa.get("dup_ct", 0),
+                    wan20=cb["frames"].get("dup_ct", 0)),
+        ct_decode_s=dict(plain=pc["frames"].get("ct_decodes_s", 0.0),
+                         gauntlet=fa.get("ct_decodes_s", 0.0)),
+        enc_d_deflated=fa.get("EncD_deflated", 0),
+        enc_d_sent=fa.get("EncD_sent", 0),
+        kill_run_s=kill_s, kill_attempts_s=res_c.attempts_s,
+        wan_bench_s=wan_s,
+        wan_rows={r["name"]: dict(measured_s=r["measured_s"],
+                                  analytic_comm_s=r["analytic_comm_s"],
+                                  rounds=r["rounds"],
+                                  iteration_s=r["iteration_s"])
+                  for r in report["rows"]},
+        phase_s=time.perf_counter() - t_phase)
+    results["_chaos"] = out
 
 
 def phase_k1_shapes(results):
@@ -2309,6 +2622,11 @@ def main(argv=None):
                     help="only run the socket phase (Table 1 over party "
                     "processes, scoring and a hot swap over the cluster, "
                     "a killed and resumed run, the wire benchmark)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="only run the chaos link layer's phase (Table 1 "
+                    "over party processes under the gauntlet with zlib "
+                    "and under wan20, a killed run under the gauntlet, "
+                    "the WAN benchmark)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2364,6 +2682,11 @@ def main(argv=None):
         log(f"[done] socket phase only, {time.perf_counter() - t_start:.1f} "
             f"s; card {card}; summary {json.dumps(results['_socket'])}")
         return
+    if args.chaos:
+        phase_chaos(results)
+        log(f"[done] chaos phase only, {time.perf_counter() - t_start:.1f} "
+            f"s; card {card}; summary {json.dumps(results['_chaos'])}")
+        return
     if args.paper:
         phase_paper(results, priv)
         log(f"[done] paper path only, {time.perf_counter() - t_start:.1f} "
@@ -2389,6 +2712,7 @@ def main(argv=None):
     phase_paper(results, priv)
     phase_serve(results, mock)
     phase_socket(results)
+    phase_chaos(results)
     phase_k1_shapes(results)
     phase_probe(results)
     phase_bench(results)
@@ -2405,7 +2729,7 @@ def main(argv=None):
                         "bound_by": r.get("bound_by"), "library_ms": None})
         for extra in ("graph_ms", "shapes", "paper_launches",
                       "serve_launches", "serve_shapes", "socket_launches",
-                      "codec_shapes"):
+                      "codec_shapes", "chaos_launches"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card {card}; "

@@ -1,6 +1,6 @@
 """Benchmark entry point of the port: the ``kernels``, ``table1``,
-``table2``, ``fig1``, ``fig2``, ``checkpoint``, ``serve`` and ``wire``
-modes of the reference's `benchmarks/run.py`.
+``table2``, ``fig1``, ``fig2``, ``checkpoint``, ``serve``, ``wire`` and
+``wan`` modes of the reference's `benchmarks/run.py`.
 
     python -m repro_torch.bench.run --only kernels [--smoke]
     python -m repro_torch.bench.run --guards
@@ -11,6 +11,7 @@ modes of the reference's `benchmarks/run.py`.
     python -m repro_torch.bench.run --only checkpoint [--smoke]
     python -m repro_torch.bench.run --only serve [--smoke]
     python -m repro_torch.bench.run --only wire [--smoke]
+    python -m repro_torch.bench.run --only wan [--smoke]
     python -m repro_torch.bench.run --only table1 --device cpu --n 180 \
         --iters 3 --key-bits 192          # a check without the card
 
@@ -39,7 +40,12 @@ encode/decode rows of `wire_bench.run` (each decode held equal to the
 message; full mode adds Table 1's 2048-ciphertext 1024-bit ``EncD``).
 Full mode on the card writes them to ``BENCH_cuda_checkpoint.json`` /
 ``BENCH_cuda_serve.json`` / ``BENCH_cuda_wire.json``; ``--smoke`` or
-``--device cpu`` writes nothing.
+``--device cpu`` writes nothing.  ``wan``: the WAN rows of
+`wan_bench.run` (k = 3 mock socket runs unshaped and under the ``wan20``
+and ``wan100`` shaping profiles, each shaped run's losses, meters and
+rounds held equal to the unshaped run's, its wall clock beside
+rounds × (latency + jitter / 2)); full mode on the card writes
+``BENCH_cuda_wan.json``.
 
 One difference from the reference: a guard violation is reported after
 the file is written, so a violation measured on the card is recorded,
@@ -67,6 +73,7 @@ SCALING_PATH = REPO_ROOT / "BENCH_cuda_scaling.json"
 CHECKPOINT_PATH = REPO_ROOT / "BENCH_cuda_checkpoint.json"
 SERVE_PATH = REPO_ROOT / "BENCH_cuda_serve.json"
 WIRE_PATH = REPO_ROOT / "BENCH_cuda_wire.json"
+WAN_PATH = REPO_ROOT / "BENCH_cuda_wan.json"
 
 
 def _csv(name: str, us: float, derived: str = "") -> None:
@@ -239,15 +246,36 @@ def bench_rows(which: str, smoke: bool, device: str) -> list[dict]:
     return rows
 
 
+def bench_wan(smoke: bool, device: str) -> dict:
+    """The WAN rows, printed; written, under the header, to `WAN_PATH`
+    in full mode on the card."""
+    from repro_torch.bench import wan_bench
+    report = wan_bench.run(smoke=smoke, device=device)
+    for r in report["rows"]:
+        _csv(r["name"], r["us"], r["derived"])
+    if smoke or device != "cuda":
+        print(f"# {WAN_PATH.name} is written only in full mode on the card")
+    else:
+        out = {**header(report["schema"]),
+               **{k: v for k, v in report.items() if k != "rows"},
+               "rows": [{k: v for k, v in r.items()
+                         if k not in ("us", "derived")}
+                        for r in report["rows"]]}
+        WAN_PATH.write_text(json.dumps(out, indent=1) + "\n")
+        print(f"# wrote {WAN_PATH}")
+    return report
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="kernels",
                     choices=["kernels", "table1", "table2", "fig1",
-                             "fig2", "checkpoint", "serve", "wire"],
+                             "fig2", "checkpoint", "serve", "wire",
+                             "wan"],
                     help="which benchmark to run (default kernels)")
     ap.add_argument("--smoke", action="store_true",
-                    help="kernels, checkpoint, serve, wire: tiny sizes; "
-                    "writes no file")
+                    help="kernels, checkpoint, serve, wire, wan: tiny "
+                    "sizes; writes no file")
     ap.add_argument("--guards", action="store_true",
                     help=f"validate the guard rows of {BENCH_PATH.name} "
                          "and exit (no measurement)")
@@ -255,8 +283,8 @@ def main(argv=None) -> None:
                     help="table1/table2: the paper-scale configuration; "
                     "fig2: the full run")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="table1/table2/fig1/fig2/checkpoint/serve/wire: "
-                         "where shares and ciphertexts live")
+                    help="table1/table2/fig1/fig2/checkpoint/serve/wire/"
+                         "wan: where shares and ciphertexts live")
     ap.add_argument("--n", type=int, default=None,
                     help="table1/table2/fig1: cut the sample count")
     ap.add_argument("--iters", type=int, default=None,
@@ -280,6 +308,8 @@ def main(argv=None) -> None:
         bench_fig2(args.paper, args.device, args.key_bits)
     elif args.only in ("checkpoint", "serve", "wire"):
         bench_rows(args.only, args.smoke, args.device)
+    elif args.only == "wan":
+        bench_wan(args.smoke, args.device)
     else:
         bench_table(args.only, args.paper, args.device, args.n, args.iters,
                     args.key_bits)

@@ -24,16 +24,22 @@ supervises the run: on a party loss it force-restarts the cluster with
 `resume=True`, the resume handshake agrees on the max common
 checkpointed step, and training continues bit-identically.
 
-Not ported here: the chaos link layer and wire compression (ROADMAP
-item 5b); `chaos=` and `wire_compression` other than ``"none"`` raise
-`NotImplementedError`.
+Chaos: with `chaos=` (a `runtime.chaos.PROFILES` name, a dict or a
+`ChaosProfile`) or `cfg.wire_compression="zlib"`, every endpoint,
+conductor and parties, runs the chaos link layer (`FaultyTransport`):
+seeded drops, duplicates, reorders, resets and partitions under netem-
+style shaping, recovered by a per-link ARQ, and lossless deflation
+below the metering boundary.  The trained model and the meters stay
+those of the fault-free run; `res.chaos_report` holds the link layer's
+own accounting.
 
 CLI (trains a synthetic run across real processes and prints the
 measured-vs-analytic wire table):
 
   PYTHONPATH=src python -m repro_torch.launch.cluster \
       [--glm logistic] [--parties 3] [--samples 400] [--iters 4] \
-      [--he mock|paillier] [--key-bits 256] [--device cuda|cpu]
+      [--he mock|paillier] [--key-bits 256] [--device cuda|cpu] \
+      [--chaos off|lan|wan20|wan100|lossy|chaos]
 """
 from __future__ import annotations
 
@@ -51,10 +57,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.comm import CommMeter
+from repro_torch.distributed import compression as comp_lib
+from repro_torch.runtime import chaos as chaos_lib
 from repro_torch.runtime import messages as msg
 from repro_torch.runtime import netparty, seeds
 from repro_torch.runtime.codec import Codec
-from repro_torch.runtime.netparty import CHAOS_NOT_PORTED, CONDUCTOR
+from repro_torch.runtime.netparty import CONDUCTOR
 from repro_torch.runtime.policy import RetryPolicy
 from repro_torch.runtime.scheduler import mask_bound_bits, validate_key_bits
 from repro_torch.runtime.transport import SocketTransport
@@ -109,7 +117,9 @@ class SocketCluster:
       io_timeout / policy: the liveness deadlines (`RetryPolicy`).
       checkpoint_dir / resume: party-local checkpoints and the resume
         handshake.
-      chaos: fault injection; not ported (raises when given).
+      chaos: link-layer profile (None, a `PROFILES` name, a dict or a
+        `ChaosProfile`); with it, or `cfg.wire_compression="zlib"`,
+        every endpoint runs `FaultyTransport`.
 
     Use as a context manager (`with SocketCluster(...) as cl:`) or call
     `start()` / `shutdown()`.  `train()` may be called once; `score()`
@@ -123,8 +133,6 @@ class SocketCluster:
                  policy: RetryPolicy | None = None, chaos=None):
         if parties[0].name != "C":
             raise ValueError("parties[0] must be C")
-        if chaos is not None or cfg.wire_compression != "none":
-            raise NotImplementedError(CHAOS_NOT_PORTED)
         validate_key_bits(cfg, mask_bound_bits(cfg))   # fail before spawning
         self.parties = list(parties)
         self.names = [p.name for p in parties]
@@ -140,6 +148,9 @@ class SocketCluster:
                 dict(policy.to_dict(), io_timeout_s=float(io_timeout)))
         self.policy = policy
         self.io_timeout = policy.io_timeout_s
+        self.chaos = chaos_lib.resolve_profile(chaos)
+        self.compression = comp_lib.validate_wire_scheme(
+            cfg.wire_compression)
         self.checkpoint_dir = checkpoint_dir
         self.resume = resume
         #: filled by the resume handshake: agreed step + audited per-party
@@ -175,8 +186,10 @@ class SocketCluster:
 
     def _wire_options(self) -> dict:
         """Link configuration shipped to every party via spawn args."""
-        return {"policy": self.policy.to_dict(), "chaos": None,
-                "compression": "none"}
+        return {"policy": self.policy.to_dict(),
+                "chaos": None if self.chaos is None else
+                self.chaos.to_dict(),
+                "compression": self.compression}
 
     def party_target(self, name: str):
         """The process entry point of party `name`, called with the
@@ -221,7 +234,8 @@ class SocketCluster:
                     raise ClusterError(
                         "timed out waiting for party ports",
                         party=missing[0] if len(missing) == 1 else None)
-        self.tp = SocketTransport(CONDUCTOR, Codec())
+        self.tp = netparty.make_link(CONDUCTOR, Codec(), wire,
+                                     self.policy)
         for name in self.names:
             s = socket.create_connection(
                 (self.host, ports[name]),
@@ -414,8 +428,11 @@ class SocketCluster:
         extra attributes: `measured_meter` (per-tag bytes framed on the
         wire), `wire_overhead_bytes` and `frames_sent` (codec prelude +
         header cost, outside the protocol meters), `iteration_s` (each
-        iteration's barrier-to-barrier host seconds).  `rounds` is the
-        analytic count of `messages.iteration_traffic` per iteration.
+        iteration's barrier-to-barrier host seconds) and, under the
+        chaos link layer, `chaos_report` (`profile`, `compression`,
+        `by_endpoint`: each endpoint's `ChaosStats` dict, `total`).
+        `rounds` is the analytic count of `messages.iteration_traffic`
+        per iteration.
 
         After a resume handshake the loop continues from the agreed
         step: the conductor replays the CP-selection draws of the
@@ -460,6 +477,21 @@ class SocketCluster:
         res.wire_overhead_bytes = meters["overhead_bytes"]
         res.frames_sent = meters["frames_sent"]
         res.iteration_s = iteration_s
+        chaos_by_endpoint = dict(meters["chaos"])
+        stats = getattr(self.tp, "chaos_stats", None)
+        if stats is not None:
+            chaos_by_endpoint[CONDUCTOR] = stats.to_dict()
+        if chaos_by_endpoint:
+            # per-endpoint link-layer accounting + the fleet total, kept
+            # strictly apart from the protocol meters above
+            res.chaos_report = {
+                "profile": None if self.chaos is None
+                else self.chaos.to_dict(),
+                "compression": self.compression,
+                "by_endpoint": chaos_by_endpoint,
+                "total": chaos_lib.ChaosStats.merge(
+                    chaos_by_endpoint.values()),
+            }
         return res
 
     # -- serving ------------------------------------------------------------
@@ -486,8 +518,9 @@ class SocketCluster:
 
     def fetch_meters(self) -> dict:
         """Out-of-protocol snapshot from every party (`fetch`): weights,
-        C's losses, and the cumulative analytic + measured per-tag
-        `CommMeter`s summed across parties, with frame overhead."""
+        C's losses, the cumulative analytic + measured per-tag
+        `CommMeter`s summed across parties, with frame overhead, and each
+        chaos-layer party's `ChaosStats` dict (`chaos`, by party)."""
         if not self._started:
             raise RuntimeError("call start() first")
         self._broadcast("fetch")
@@ -505,6 +538,8 @@ class SocketCluster:
                 "overhead_bytes": overhead, "frames_sent": frames,
                 "weights": {n: np.asarray(r.payload["weights"], np.float64)
                             for n, r in results.items()},
+                "chaos": {n: r.payload["chaos"] for n, r in results.items()
+                          if r.payload.get("chaos") is not None},
                 "losses": [float(v) for v in results["C"].payload["losses"]]}
 
     def score(self, features: dict[str, np.ndarray],
@@ -681,6 +716,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where every party keeps its shares and "
                     "ciphertexts (no fallback from cuda)")
+    ap.add_argument("--chaos", default=None,
+                    choices=sorted(chaos_lib.PROFILES),
+                    help="run under a named chaos/shaping profile")
     args = ap.parse_args(argv)
 
     if args.glm in ("poisson", "gamma"):
@@ -697,8 +735,9 @@ def main(argv=None) -> None:
                     device=args.device)
 
     print(f"spawning {args.parties} party processes + conductor "
-          f"({args.he} backend, parties on {args.device})…")
-    res = train_vfl_socket(parties, y, cfg)
+          f"({args.he} backend, parties on {args.device}"
+          + (f", chaos={args.chaos}" if args.chaos else "") + ")…")
+    res = train_vfl_socket(parties, y, cfg, chaos=args.chaos)
     print(f"iterations : {res.n_iter}   losses: "
           f"{[round(v, 4) for v in res.losses]}")
     print(f"wall clock : {res.runtime_s:.2f}s")
@@ -708,6 +747,18 @@ def main(argv=None) -> None:
               f"measured {res.measured_meter.by_tag[tag]:>10d} B")
     print(f"frames sent: {res.frames_sent}; frame overhead (preludes + "
           f"headers, unmetered): {res.wire_overhead_bytes} B")
+    report = getattr(res, "chaos_report", None)
+    if report is not None:
+        t = report["total"]
+        print("chaos link layer (injected / recovered, unmetered):")
+        print(f"  injected : {t.get('drops', 0)} drops, "
+              f"{t.get('dups', 0)} dups, {t.get('reorders', 0)} reorders, "
+              f"{t.get('resets', 0)} resets, "
+              f"{t.get('partitions', 0)} partitions")
+        print(f"  recovery : {t.get('retransmits', 0)} retransmits "
+              f"({t.get('retransmit_bytes', 0)} B), "
+              f"{t.get('acks_sent', 0)} acks, "
+              f"backoff {t.get('backoff_total_s', 0.0):.2f}s")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,11 @@
 """Party runtime: actors + typed messages + the local, pipelined and
 socket transports (`SocketTransport` + `netparty.PartyServer`, launched
-by `launch/cluster.py`), the wire codec and the retry policy."""
+by `launch/cluster.py`), the chaos link layer under the socket transport
+(`FaultyTransport`: seeded faults, ARQ, lossless deflation), the wire
+codec and the retry policy."""
 from repro_torch.runtime import messages
+from repro_torch.runtime.chaos import (ChaosProfile, ChaosStats,
+                                       FaultSchedule, FaultyTransport)
 from repro_torch.runtime.codec import Codec, CodecError
 from repro_torch.runtime.party import CPState, DataParty, LabelParty, Party
 from repro_torch.runtime.policy import RetryPolicy
@@ -18,5 +22,6 @@ __all__ = [
     "VFLScheduler", "TransportDealer", "mask_bound_bits",
     "validate_key_bits", "Transport", "LocalTransport",
     "PipelinedTransport", "SocketTransport", "LockedRNG",
-    "TrainState", "Codec", "CodecError", "RetryPolicy",
+    "TrainState", "Codec", "CodecError", "RetryPolicy", "ChaosProfile",
+    "ChaosStats", "FaultSchedule", "FaultyTransport",
 ]

@@ -27,7 +27,10 @@ run with `Control` frames; the parties form a full mesh among
 themselves (party i initiates to every lower-index peer, accepts every
 higher-index one) and exchange all protocol traffic directly — the
 conductor never sees a share or a ciphertext, the paper's no-third-party
-trust model.
+trust model.  With fault injection or wire compression in the launcher's
+`wire` options, every link runs under the chaos link layer
+(`runtime.chaos.FaultyTransport`: seeded faults, ARQ, lossless
+deflation) and the party's final report carries its `ChaosStats`.
 
 Determinism.  The handshake carries the run seed; every party re-derives
 the streams the single-process scheduler owns (registry:
@@ -82,6 +85,7 @@ from repro_torch.runtime import codec as codec_lib
 from repro_torch.runtime import messages as msg
 from repro_torch.runtime import seeds as seeds_lib
 from repro_torch.runtime import session as session_lib
+from repro_torch.runtime.chaos import ChaosProfile, FaultyTransport
 from repro_torch.runtime.dispatch import DispatchCore
 from repro_torch.runtime.party import DataParty, LabelParty
 from repro_torch.runtime.policy import RetryPolicy
@@ -93,20 +97,19 @@ CONDUCTOR = "conductor"
 
 _P1_TYPES = (msg.ZShare, msg.YShare, msg.EzShare)
 
-#: the link layer that `wire` may ask for and this package does not have
-CHAOS_NOT_PORTED = ("the chaos link layer and wire compression "
-                    "(FaultyTransport, ChaosProfile, deflate) are not "
-                    "ported: ROADMAP.md Queue 1 item 5b")
-
-
-def make_link(name: str, codec, wire: dict) -> SocketTransport:
+def make_link(name: str, codec, wire: dict,
+              policy: RetryPolicy | None = None) -> SocketTransport:
     """The transport of one endpoint for the launcher's `wire` options: a
-    plain `SocketTransport`.  Every endpoint of a run must pick the same
-    framing, so fault injection or compression raises."""
-    if wire.get("chaos") is not None or \
-            wire.get("compression", "none") != "none":
-        raise NotImplementedError(CHAOS_NOT_PORTED)
-    return SocketTransport(name, codec)
+    plain `SocketTransport`, or the chaos link layer (`FaultyTransport`)
+    when `wire` asks for fault injection or wire compression.  Every
+    endpoint of a run must pick the same framing."""
+    chaos = wire.get("chaos")
+    compression = wire.get("compression", "none")
+    if chaos is None and compression == "none":
+        return SocketTransport(name, codec)
+    return FaultyTransport(name, codec,
+                           profile=ChaosProfile.from_dict(chaos),
+                           policy=policy, compression=compression)
 
 
 class PartyServer:
@@ -120,7 +123,8 @@ class PartyServer:
       io_timeout: overrides the policy's protocol deadline.
       checkpoint_dir: run root of the party-local checkpoints.
       wire: the launcher's link configuration ({"policy": RetryPolicy
-        dict, "chaos": None, "compression": "none"}).
+        dict, "chaos": ChaosProfile dict or None, "compression": "none"
+        or "zlib"}).
       device: where this party's shares and ciphertexts live.
     """
 
@@ -201,7 +205,7 @@ class PartyServer:
         self._listen.settimeout(self.policy.connect_timeout())
         self.port = self._listen.getsockname()[1]
         self.codec = codec_lib.Codec(self._resolve_mod, device=self.device)
-        self.tp = make_link(self.name, self.codec, self.wire)
+        self.tp = make_link(self.name, self.codec, self.wire, self.policy)
         # one dispatch core for training and serving (runtime/dispatch.py)
         self.core = DispatchCore(self.name, self.tp, self.io_timeout,
                                  deliver=self._dispatch)
@@ -639,6 +643,9 @@ class PartyServer:
             "overhead_bytes": self.tp.overhead_bytes,
             "frames_sent": self.tp.frames_sent,
         }
+        stats = getattr(self.tp, "chaos_stats", None)
+        if stats is not None:
+            dump["chaos"] = stats.to_dict()
         if self.name == "C":
             dump["losses"] = [float(v) for v in self.actor.losses]
         self.tp.send_control(msg.Control(self.name, CONDUCTOR,

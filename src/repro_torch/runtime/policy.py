@@ -4,7 +4,7 @@
 event-loop deadline (`REPRO_WIRE_TIMEOUT_S`), the heartbeat cadence, the
 bye/join/terminate/poll timeouts, and the exponential-backoff schedule a
 reliable-link layer uses for retransmissions (the chaos link layer,
-ROADMAP item 5b, is its consumer; the plain socket path reads the
+`runtime.chaos`, is its consumer; the plain socket path reads the
 deadlines only).  The class is the reference's, field for field, so one
 policy dict serves both packages' parties.
 

@@ -20,8 +20,8 @@ package's single-process runs, on the CPU.
 * scoring over the cluster (`VFLScoringEngine(cluster=)`) equal to
   in-process serving before and after a hot swap, with the measured
   `infer.wx_share` bytes equal to analytic bytes;
-* what is refused: a party asked for CUDA without a card, the chaos
-  layer and wire compression (ROADMAP item 5b);
+* what is refused: a party asked for CUDA without a card, the lossy
+  ``"int8"`` wire compression and an unknown chaos profile;
 * the socket transport's link replacement and heartbeats.
 
 Every cluster runs under a short `RetryPolicy`, so a hang fails its
@@ -253,12 +253,12 @@ def test_refusals():
     parties = _parties(ttrainer, X, 2)
     kw = dict(glm="logistic", max_iter=1, batch_size=32, he_backend="mock",
               tol=0.0)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        tcluster.SocketCluster(parties, y, _port_cfg(**kw), chaos="lan")
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(ValueError, match="(?i)int8.*lossy"):
         tcluster.train_vfl_socket_resilient(
-            parties, y, _port_cfg(wire_compression="zlib", **kw),
+            parties, y, _port_cfg(wire_compression="int8", **kw),
             checkpoint_dir="unused")
+    with pytest.raises(ValueError, match="unknown chaos profile"):
+        tcluster.SocketCluster(parties, y, _port_cfg(**kw), chaos="tsunami")
     if torch.cuda.is_available():
         return
     # no fallback: a party asked for CUDA without a card fails
