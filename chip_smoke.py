@@ -137,6 +137,26 @@ jitter / 2); (c) a k = 3 mock run whose B1 is killed at iteration 2
 under the gauntlet, equal to the uninterrupted run after one restart;
 (d) the WAN benchmark (`python -m repro_torch.bench.run --only wan`,
 written to `BENCH_cuda_wan.json`).
+Then the multi-device HE engine (`phase_sharded`, also alone as
+``python3 chip_smoke.py --sharded``): a gloo world of 2 ranks on the one
+card (`launch.mesh.run_world`), each rank running the same program with
+a `distributed.he_sharding.ShardedCryptoEngine` (every batched op's rows
+split over the ranks, joined by an all_gather; each matvec's partials
+⊕-combined by the `modmul_reduce` butterfly): (a) the sharded ops at the
+main path's shapes and 1024-bit keys (`mont_mul` at 2048 and 12 rows of
+n², per-row and shared; the shared-exponent ladder at 2048 rows;
+`protocols.he_matvec` at 2048 × 12, windows 1 and 4, and at 2047 rows;
+encrypt; `decrypt_crt`), each equal to the single-device engine on the
+card, and `modmul_reduce` and `secure_allreduce_shares` on CUDA
+tensors; (b) Table 1 at paper width through `train_vfl` with a
+`PaillierBackend` on the sharded engine, on both ranks equal to the
+local run on the card (losses, weights, bytes by tag, rounds), K1
+launched the local run's count plus one a matvec, K2 and K3 the local
+run's, K4–K8 not at all, K1–K3 held against their plain versions at
+every shape the ranks launched them at; (c) the same with the CIOS
+pipeline pinned (K5–K7; K1–K4 none).  Per rank: host s/iteration,
+device time, collectives and their host time; the device memory of the
+two rank contexts.
 Device time is the sum over the profiler's device events (a torch op's
 own event repeats its kernels' time).
 """
@@ -2502,6 +2522,358 @@ def phase_chaos(results):
     results["_chaos"] = out
 
 
+# ---------------------------------------------------------------------------
+# the multi-device HE engine: Table 1 sharded over two ranks on one card
+# ---------------------------------------------------------------------------
+
+#: the keys of the sharded phase's Table 1 runs (both parties, every rank)
+SHARDED_SEEDS = {"C": 101, "B1": 202}
+WORLD = 2
+
+
+def sharded_keys():
+    from repro_torch.crypto import paillier
+    return {p: paillier.keygen(1024, seed=s) for p, s in SHARDED_SEEDS.items()}
+
+
+def sharded_table1(engine, keys, iters: int = ITERS):
+    """Table 1 at paper width (`iters` iterations) with its Paillier
+    backend on `engine`: the same keys and noise stream in every run of
+    the phase, so sharded and local runs are the same computation."""
+    import numpy as np
+    from repro_torch.core import protocols
+    from repro_torch.core.trainer import VFLConfig, train_vfl
+    parties, y = table1_parties()
+    return train_vfl(parties, y, VFLConfig(he_backend="paillier", **{
+                         **table1_kw(), "max_iter": iters}),
+                     backend=protocols.PaillierBackend(
+                         keys, np.random.default_rng(0), engine,
+                         device="cuda"))
+
+
+def _pinned(pipeline: str):
+    """Context: ``REPRO_CRYPTO_PIPELINE`` set to `pipeline` (None: unset)
+    for the block."""
+    import contextlib
+    from repro_torch.crypto import engine
+
+    @contextlib.contextmanager
+    def pin():
+        prev = os.environ.pop(engine.PIPELINE_ENV_VAR, None)
+        if pipeline is not None:
+            os.environ[engine.PIPELINE_ENV_VAR] = pipeline
+        try:
+            yield
+        finally:
+            os.environ.pop(engine.PIPELINE_ENV_VAR, None)
+            if prev is not None:
+                os.environ[engine.PIPELINE_ENV_VAR] = prev
+    return pin()
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Mean host ms of `fn()` (already run once), the device
+    synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def sharded_op_checks(eng, priv) -> dict:
+    """(a) Each sharded op at the main path's shapes (1024-bit keys) equal
+    to the single-device engine on the card; the collectives on CUDA
+    tensors; host ms of the sharded and the local op."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import protocols
+    from repro_torch.crypto import bigint, paillier
+    from repro_torch.distributed import secure_ops
+    one = eng.single_device()
+    rank, dev = dist.get_rank(), torch.device("cuda")
+    pub, mod = priv.pub, priv.pub.mod_n2
+    gen = np.random.default_rng(41)              # the same on every rank
+    big = _random_limbs(mod, 2048, gen, dev)
+    small = _random_limbs(mod, 12, gen, dev)
+    nbits = bigint.cached_bits(pub.n, pub.n.bit_length())
+    exps = gen.integers(0, 1 << 22, size=(2048, 12), dtype=np.uint32)
+    msgs = bigint.as_limbs(paillier.encode_ints(
+        pub, _random_ints(pub.n, 2048, gen)), dev)
+    cts = paillier.encrypt(pub, msgs, one, rng=np.random.default_rng(3))
+    checks = {
+        "mont_mul (2048, L)": lambda e: e.mont_mul(big, big.flip(0), mod),
+        "mont_mul (2048, L) shared": lambda e: e.mont_mul(big, small[0], mod),
+        "mont_mul (12, L)": lambda e: e.mont_mul(small, small.flip(0), mod),
+        "mont_mul (12, L) shared": lambda e: e.mont_mul(small, big[7], mod),
+        "ladder (2048, L) x n, shared bits": lambda e: e.mont_exp_bits(
+            big, nbits, mod),
+        "he_matvec 2048 x 12, window 4": lambda e: protocols.he_matvec(
+            pub, cts, exps, 22, e, window=4),
+        "he_matvec 2048 x 12, window 1": lambda e: protocols.he_matvec(
+            pub, cts, exps, 22, e, window=1),
+        "he_matvec 2047 x 12, window 4": lambda e: protocols.he_matvec(
+            pub, cts[:2047], exps[:2047], 22, e, window=4),
+        "encrypt 2048": lambda e: paillier.encrypt(
+            pub, msgs, e, rng=np.random.default_rng(5)),
+        "decrypt_crt 12": lambda e: paillier.decrypt_crt(priv, cts[:12], e),
+    }
+    out = {}
+    for name, op in checks.items():
+        got, want = op(eng), op(one)
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"rank {rank}: sharded {name} differs from "
+                                 "the single-device engine (max abs diff "
+                                 f"{_max_err(got, want)})")
+        out[name] = dict(sharded_ms=_host_ms(lambda: op(eng), 2),
+                         local_ms=_host_ms(lambda: op(one), 2))
+    # the collectives on CUDA tensors: each rank's (12, L) residues
+    mine = [_random_limbs(mod, 12, np.random.default_rng(50 + r), dev)
+            for r in range(WORLD)]
+    fold = one.mont_mul(one.to_mont(mine[0], mod), one.to_mont(mine[1], mod),
+                        mod)
+    got = secure_ops.modmul_reduce(one.to_mont(mine[rank], mod), mod,
+                                   eng.mesh, engine=eng)
+    if not torch.equal(got, fold):
+        raise AssertionError(f"rank {rank}: modmul_reduce differs from the "
+                             "single-device product")
+    shares = [torch.as_tensor(np.random.default_rng(60 + r).integers(
+        -(1 << 63), (1 << 63) - 1, size=64, dtype=np.int64), device=dev)
+        for r in range(WORLD)]
+    got = secure_ops.secure_allreduce_shares(shares[rank], eng.mesh)
+    if not (got.is_cuda and torch.equal(got, shares[0] + shares[1])):
+        raise AssertionError(f"rank {rank}: secure_allreduce_shares is not "
+                             "the Z_2^64 sum")
+    out["modmul_reduce (12, L)"] = dict(sharded_ms=_host_ms(
+        lambda: secure_ops.modmul_reduce(mine[rank], mod, eng.mesh,
+                                         engine=eng), 10))
+    return out
+
+
+def gloo_cuda_probe(mesh) -> dict:
+    """Whether gloo's all_gather takes CUDA tensors as they are, and the
+    host ms of a (12, 171) limb all_gather staged through host memory
+    (`secure_ops.gather_rows`) and, where gloo takes them, unstaged.
+    Point-to-point ops are not probed: gloo reads their storage as host
+    memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import secure_ops
+    group = secure_ops.axis_group(mesh)
+    x = torch.arange(12 * 171, device="cuda").reshape(12, 171) \
+        + 1000 * dist.get_rank()
+    staged = secure_ops.gather_rows(x, group)
+    out = dict(staged_ms=_host_ms(lambda: secure_ops.gather_rows(x, group),
+                                  10))
+
+    def direct():
+        parts = [torch.empty_like(x) for _ in range(WORLD)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts)
+    try:
+        got = direct()
+        out["direct_equal"] = bool(torch.equal(got, staged))
+        out["direct_ms"] = _host_ms(direct, 10)
+    except Exception as e:                       # reported, not needed
+        out["direct_error"] = f"{type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def sharded_rank(run_cios: bool) -> dict:
+    """One rank of phase_sharded's world (gloo, both ranks on cuda:0):
+    (a) the op checks, the gloo probe; (b) Table 1 on the RNS pipeline,
+    counted (launches, shapes, collectives), then one iteration
+    profiled; the device memory in use with both contexts up; (c) with
+    ``run_cios`` the same run with the CIOS pipeline pinned, counted.
+    Returns the rank's seconds by part in ``t``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.crypto import paillier
+    from repro_torch.distributed import he_sharding, secure_ops
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    t = {}
+
+    def lap(part):
+        t[part] = time.perf_counter() - t0 - sum(t.values())
+    rank = dist.get_rank()
+    mesh = mesh_lib.make_data_mesh("cuda")
+    eng = he_sharding.ShardedCryptoEngine(backend="cuda", mesh=mesh)
+    lap("mesh")
+    out = dict(rank=rank, t=t, ops=sharded_op_checks(eng, paillier.keygen(
+        1024, seed=1)), probe=gloo_cuda_probe(mesh))
+    lap("ops")
+    keys = sharded_keys()
+    for pipeline in ("rns", "cios") if run_cios else ("rns",):
+        with _pinned("cios" if pipeline == "cios" else None):
+            sharded_table1(eng, keys, iters=1)     # this key's set-up
+            lap(f"{pipeline} warm-up")
+            secure_ops.stats.reset()
+            res, launches, wall, peak = counted_run(
+                lambda: sharded_table1(eng, keys))
+            out[pipeline] = dict(
+                res=res, launches=launches, wall_s=wall, peak_bytes=peak,
+                shapes=path_shapes(),
+                collectives={k: (secure_ops.stats.calls[k],
+                                 secure_ops.stats.seconds[k],
+                                 secure_ops.stats.bytes[k])
+                             for k in secure_ops.stats.calls})
+            lap(f"{pipeline} counted")
+            if pipeline == "rns":
+                dist.barrier()                   # both contexts are up
+                if rank == 0:
+                    out["mem_used_mib"] = gpu_mem_used_mib()
+                out["reserved_bytes"] = torch.cuda.max_memory_reserved()
+                _, dev_us, total_us, _, _ = profiled(
+                    lambda: sharded_table1(eng, keys, iters=1))
+                out["profile"] = dict(
+                    all_device_ms=total_us / 1e3,
+                    device_ms={k: v / 1e3 for k, v in dev_us.items() if v})
+                lap("rns profiled")
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def matvec_fold_depth(rows: int, mod) -> int:
+    """K5 launches of one CIOS matvec's chunk fold at `rows` rows on this
+    card (`ops.he_matvec_fused`: ⌈log2⌉ of its chunk partials)."""
+    from repro_torch.kernels import montexp, ops
+    chunk = max(1, min(ops.MATVEC_CHUNK,
+                       montexp.matvec_rows_fit(mod, 4, 12)))
+    parts = -(-rows // chunk)
+    return max(0, math.ceil(math.log2(parts)))
+
+
+def phase_sharded(results):
+    """The multi-device HE engine on the card: a gloo world of 2 ranks on
+    cuda:0 (`launch.mesh.run_world`), each running the same program
+    with a `ShardedCryptoEngine` (every batched op's rows split over the
+    ranks: an all_gather for each row-wise op, the `modmul_reduce`
+    butterfly for each matvec).  (a) the sharded ops at the main path's
+    shapes equal to the single-device engine; `modmul_reduce` and
+    `secure_allreduce_shares` on CUDA tensors.  (b) Table 1 at paper
+    width on the RNS pipeline: on both ranks equal to the local run
+    (losses, weights, bytes by tag, rounds); K1 the local run's launches
+    plus one a matvec (its butterfly step), K2 and K3 the local run's,
+    K4-K8 none; K1-K3 held against their plain versions at every shape
+    the ranks launched them at.  (c) the same with the CIOS pipeline
+    pinned: K6 and K7 the local run's, K5 the local run's less the
+    matvec folds' lost depth plus the butterfly, K1-K4 none.  Prints
+    per rank host s/iteration, device time, collectives and their host
+    time, and the device memory of the second context."""
+    from repro_torch.bench import tables
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    build.load()                       # the ranks load what this built
+    keys = sharded_keys()
+    from repro_torch.crypto import engine
+    local = {}
+    for pipeline in ("rns", "cios"):
+        with _pinned("cios" if pipeline == "cios" else None):
+            eng = engine.make("cuda")
+            sharded_table1(eng, keys, iters=1)     # this key's set-up
+            res, launches, wall, peak = counted_run(
+                lambda: sharded_table1(eng, keys))
+            local[pipeline] = dict(res=res, launches=launches,
+                                   shapes=path_shapes())
+            if pipeline == "rns":
+                _, _, total_us, _, _ = profiled(
+                    lambda: sharded_table1(eng, keys, iters=1))
+                local["device_ms"] = total_us / 1e3
+    mem_before = gpu_mem_used_mib()
+    ranks = mesh_lib.run_world(sharded_rank, WORLD, "cuda", (True,),
+                               timeout_s=600, collective_timeout_s=300)
+    mem_extra = ranks[0]["mem_used_mib"] - mem_before
+    matvecs = local["rns"]["launches"]["rns_he_matvec"]
+    mod = keys["C"].pub.mod_n2
+    fold_gain = matvec_fold_depth(2048 // WORLD, mod) \
+        - matvec_fold_depth(2048, mod)
+    expect = {
+        "rns": {"rns_montmul": local["rns"]["launches"]["rns_montmul"]
+                + matvecs * int(math.log2(WORLD)),
+                "rns_mont_exp": local["rns"]["launches"]["rns_mont_exp"],
+                "rns_he_matvec": matvecs},
+        "cios": {"montmul": local["cios"]["launches"]["montmul"]
+                 + matvecs * (int(math.log2(WORLD)) + fold_gain),
+                 "mont_exp": local["cios"]["launches"]["mont_exp"],
+                 "he_matvec": local["cios"]["launches"]["he_matvec"]}}
+    shapes = {k: {} for k in RNS_PATH}
+    out = dict(world=WORLD, mem_extra_mib=mem_extra,
+               mem_before_mib=mem_before, expected=expect,
+               local_device_ms=local["device_ms"], ranks=[])
+    for r in ranks:
+        label = f"sharded rank {r['rank']}"
+        for name, t in r["ops"].items():
+            log(f"[{label}] {name}: equal to the single-device engine; "
+                + ", ".join(f"{k} {v:.3f}" for k, v in t.items()))
+        log(f"[{label}] gloo probe: {json.dumps(r['probe'])}")
+        row = dict(rank=r["rank"], rank_s=r["rank_s"],
+                   reserved_mib=r["reserved_bytes"] / 2**20,
+                   ops=r["ops"], probe=r["probe"])
+        for pipeline in ("rns", "cios"):
+            got = r[pipeline]
+            try:
+                tables.require_equal(f"{label} {pipeline}", got["res"],
+                                     local[pipeline]["res"])
+            except RuntimeError as e:
+                fail(f"{e} (against the local run on the card)")
+            on = RNS_PATH if pipeline == "rns" else (
+                "montmul", "mont_exp", "he_matvec")
+            require(f"{label} {pipeline}", got["launches"], positive=on,
+                    zero=[k for k in KERNELS if k not in on],
+                    exact=expect[pipeline])
+            if pipeline == "rns":
+                for x, c in got["shapes"].items():
+                    for sh, n in c.items():
+                        shapes[x][sh] = shapes[x].get(sh, 0) + n
+            n_coll = sum(c[0] for c in got["collectives"].values())
+            coll_s = sum(c[1] for c in got["collectives"].values())
+            s_it = got["res"].runtime_s / ITERS
+            row[pipeline] = dict(
+                s_per_iter=s_it, wall_s=got["wall_s"],
+                local_s_per_iter=local[pipeline]["res"].runtime_s / ITERS,
+                launches=got["launches"], collectives=got["collectives"],
+                collective_calls=n_coll, collective_s=coll_s,
+                peak_mib=got["peak_bytes"] / 2**20)
+            log(f"[{label}] Table 1, {pipeline}, {ITERS} iterations: "
+                f"{s_it:.4f} s/iteration (local run "
+                f"{row[pipeline]['local_s_per_iter']:.4f}); equal to the "
+                f"local run; {n_coll} collectives, {coll_s:.3f} s of host "
+                f"time ({json.dumps(got['collectives'])}); launches "
+                f"{got['launches']}")
+        row.update(profile=r["profile"], t=r["t"])
+        log(f"[{label}] device time of a profiled RNS iteration "
+            f"{r['profile']['all_device_ms']:.2f} ms (by kernel "
+            f"{json.dumps(r['profile']['device_ms'])}); reserved "
+            f"{row['reserved_mib']:.1f} MiB; rank {r['rank_s']:.1f} s "
+            f"({json.dumps({k: round(v, 1) for k, v in r['t'].items()})})")
+        out["ranks"].append(row)
+    local_shapes = local["rns"]["shapes"]
+    log(f"[sharded] K1 launches a rank by (batch, CH, shared y): "
+        + "; ".join(f"({b}, {c}{', shared' if sh else ''}) x{n}"
+                    for (b, c, sh), n in sorted(
+                        ranks[0]["rns"]["shapes"]["rns_montmul"].items(),
+                        key=lambda kv: -kv[1])))
+    held = hold_at_shapes("sharded", shapes)
+    for k in KERNELS:
+        results.setdefault(k, {})["sharded_launches"] = {
+            p: ranks[0][p]["launches"][k] for p in ("rns", "cios")}
+    log(f"[sharded] world of {WORLD} on one card: both ranks equal to the "
+        f"local run on both pipelines; launches a rank as expected "
+        f"{json.dumps(expect)} (local K3 shapes "
+        f"{sorted(str(s) for s in local_shapes['rns_he_matvec'])}); "
+        f"device memory in use {mem_before:.0f} MiB before the world, "
+        f"+{mem_extra:.0f} MiB with its two contexts "
+        f"(+{mem_extra / WORLD:.0f} MiB a rank); a profiled local RNS "
+        f"iteration's device time {local['device_ms']:.2f} ms")
+    out.update(held_at_shapes=held, phase_s=time.perf_counter() - t_phase)
+    results["_sharded"] = out
+
+
 def phase_k1_shapes(results):
     """K1 at every (batch, CH, shared y) it launched at on the RNS path
     and path B, each in a CUDA graph beside an empty kernel's launch
@@ -2622,6 +2994,10 @@ def main(argv=None):
                     help="only run the socket phase (Table 1 over party "
                     "processes, scoring and a hot swap over the cluster, "
                     "a killed and resumed run, the wire benchmark)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="only run the multi-device HE engine's phase "
+                    "(a gloo world of 2 ranks on the card: sharded ops, "
+                    "Table 1 sharded on both pipelines)")
     ap.add_argument("--chaos", action="store_true",
                     help="only run the chaos link layer's phase (Table 1 "
                     "over party processes under the gauntlet with zlib "
@@ -2687,35 +3063,47 @@ def main(argv=None):
         log(f"[done] chaos phase only, {time.perf_counter() - t_start:.1f} "
             f"s; card {card}; summary {json.dumps(results['_chaos'])}")
         return
+    if args.sharded:
+        phase_sharded(results)
+        log(f"[done] sharded phase only, "
+            f"{time.perf_counter() - t_start:.1f} s; card {card}; summary "
+            f"{json.dumps(results['_sharded'])}")
+        return
     if args.paper:
         phase_paper(results, priv)
         log(f"[done] paper path only, {time.perf_counter() - t_start:.1f} "
             f"s; card {card}; summary {json.dumps(results['_paper'])}")
         return
-    phase_rns_kernels(ctx_n2, ctx_p2, results)
-    phase_cios_kernels(priv.pub.mod_n2, priv.crt_p.mod_p2, results)
+    spent = results["_phase_s"] = {}
+
+    def timed(phase, *a):
+        t0 = time.perf_counter()
+        out = phase(*a)
+        dt = time.perf_counter() - t0
+        spent[phase.__name__] = spent.get(phase.__name__, 0.0) + dt
+        log(f"[phase] {phase.__name__}: {dt:.1f} s")
+        return out
+    timed(phase_rns_kernels, ctx_n2, ctx_p2, results)
+    timed(phase_cios_kernels, priv.pub.mod_n2, priv.crt_p.mod_p2, results)
     for k2, k6 in zip(results["rns_mont_exp"]["shapes"],
                       results["mont_exp"]["shapes"]):
         log(f"[kernels] ladder at {k2['rows']} rows x {k2['bits']} shared "
             f"bits: K2 (RNS, CH {k2['CH']}) {k2['ms']:.3f} ms against K6 "
             f"(CIOS, L {k6['L']}) {k6['ms']:.3f} ms")
-    phase_ring_matmul(results)
-    phase_paillier(priv, "rns")
-    phase_paillier(priv, "cios")
+    timed(phase_ring_matmul, results)
+    timed(phase_paillier, priv, "rns")
+    timed(phase_paillier, priv, "cios")
     from repro_torch.core.trainer import VFLConfig, train_vfl
     parties, y = table1_parties()
     mock = train_vfl(parties, y, VFLConfig(he_backend="mock", **table1_kw()))
-    phase_train(results, mock)
-    phase_path_a(results, mock)
-    phase_path_b(results, mock)
-    phase_pipelined(results, priv)
-    phase_paper(results, priv)
-    phase_serve(results, mock)
-    phase_socket(results)
-    phase_chaos(results)
-    phase_k1_shapes(results)
-    phase_probe(results)
-    phase_bench(results)
+    for phase in (phase_train, phase_path_a, phase_path_b):
+        timed(phase, results, mock)
+    timed(phase_pipelined, results, priv)
+    timed(phase_paper, results, priv)
+    timed(phase_serve, results, mock)
+    for phase in (phase_socket, phase_chaos, phase_sharded, phase_k1_shapes,
+                  phase_probe, phase_bench):
+        timed(phase, results)
     summary = {k: results.pop(k) for k in list(results) if k[0] == "_"}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -2729,7 +3117,8 @@ def main(argv=None):
                         "bound_by": r.get("bound_by"), "library_ms": None})
         for extra in ("graph_ms", "shapes", "paper_launches",
                       "serve_launches", "serve_shapes", "socket_launches",
-                      "codec_shapes", "chaos_launches"):
+                      "codec_shapes", "chaos_launches",
+                      "sharded_launches"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card {card}; "

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.crypto import (bigint, fixed_base, fixed_point, paillier,
                                 prng, ring)
+from repro_torch.crypto import engine as engine_mod
 from repro_torch.crypto.engine import CryptoEngine
 from repro_torch.crypto.ring import R64
 
@@ -47,7 +48,7 @@ def window_digits(exps: np.ndarray, width: int, window: int) -> np.ndarray:
 
 
 def he_matvec(pub: paillier.PublicKey, cts: torch.Tensor, exps: np.ndarray,
-              width: int, engine: CryptoEngine,
+              width: int, engine: CryptoEngine | None = None,
               window: int = DEFAULT_WINDOW, *, digits=None) -> torch.Tensor:
     """cts: (n, L2) Montgomery ciphertexts; exps: (n, m) < 2^width.
     Returns (m, L2) ciphertexts of Σ_i exps[i,j]·m_i (integer, no wrap).
@@ -57,14 +58,17 @@ def he_matvec(pub: paillier.PublicKey, cts: torch.Tensor, exps: np.ndarray,
 
     Routed as the reference routes it: on the CIOS pipeline with CPU
     tensors, the library ladders (`bigint.he_matvec_windowed`,
-    `bigint.he_matvec_bitserial`); otherwise the engine's fused matvec
-    (K7 on CIOS, K3 on RNS, or their plain versions on the CPU)."""
+    `bigint.he_matvec_bitserial`); otherwise, and always for a sharded
+    engine, the engine's fused matvec (K7 on CIOS, K3 on RNS, or their
+    plain versions on the CPU).  `engine` None: the process default."""
+    engine = engine if engine is not None else engine_mod.get_engine()
     exps = np.asarray(exps, np.uint32)
-    library = engine.route(pub.mod_n2) == "cios" and not cts.is_cuda
+    library = not engine.sharded and engine.route(pub.mod_n2) == "cios" \
+        and not cts.is_cuda
     if library:
         engine.check_device(cts)
     if window <= 1:
-        bits = window_digits(exps, width, 1)
+        bits = fixed_point.int_bits_msb(exps, width)
         if library:
             return bigint.he_matvec_bitserial(
                 cts, torch.as_tensor(bits.astype(np.int64)), pub.mod_n2)
@@ -85,7 +89,8 @@ def he_matvec(pub: paillier.PublicKey, cts: torch.Tensor, exps: np.ndarray,
 
 class PaillierBackend:
     """Real Paillier.  Each party owns a keypair; every hot loop goes
-    through `engine` on `device`.  Encryption randomness is drawn from
+    through `engine` (None: the process default, `engine.get_engine()`,
+    read at each op) on `device`.  Encryption randomness is drawn from
     the shared protocol stream `rng`.
 
     Noise pool: the encryption noise is data-independent, so once
@@ -107,10 +112,11 @@ class PaillierBackend:
     name = "paillier"
 
     def __init__(self, keys: dict[str, paillier.PrivateKey],
-                 rng: np.random.Generator, engine: CryptoEngine, *, device):
+                 rng: np.random.Generator, engine: CryptoEngine | None = None,
+                 *, device):
         self.keys = keys
         self.rng = rng
-        self.engine = engine
+        self._engine = engine
         self.device = torch.device(device)
         self.tables: dict[str, fixed_base.FixedBaseTable] = {
             party: key.noise_table for party, key in keys.items()
@@ -119,6 +125,11 @@ class PaillierBackend:
             collections.deque)
         self._noise_lock = threading.Lock()
         self._noise_exec = None
+
+    @property
+    def engine(self) -> CryptoEngine:
+        return self._engine if self._engine is not None \
+            else engine_mod.get_engine()
 
     def key_bits(self, party: str) -> int:
         return self.keys[party].pub.key_bits

@@ -27,11 +27,30 @@ plain PyTorch versions for CPU tensors.
 * ``torch`` — the plain versions; an op on a CUDA tensor raises.
 * ``auto``  — whichever the tensors' device gives (never decided from
               whether a GPU is present).
+
+Select it with the ``REPRO_CRYPTO_ENGINE`` env var, `VFLConfig
+.crypto_engine`, or the process default (`get_engine`, `set_engine`,
+`use_engine`), which `crypto.paillier`'s ops and
+`protocols.PaillierBackend` use when no engine is passed.
+
+Multi-device: an engine with a `mesh` (a `torch.distributed.device_mesh
+.DeviceMesh` with a named dim `mesh_axis`; or
+`distributed.he_sharding.ShardedCryptoEngine`) splits the rows of every
+batched op over that dim's ranks (`distributed.he_sharding`), the same
+canonical limbs as the single-device engine; `shard_batch=False` turns
+the routing off without dropping the mesh.
+
+The reference's tile knobs (``tile_b``, ``tile_m``, ``chunk_n``) size
+TPU VMEM blocks and have no counterpart: each kernel's wrapper picks its
+launch shape from the batch and the card (`kernels.montmul
+.montmul_shape`, `kernels.montexp.matvec_shape`, ...).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+from typing import Any
 
 import numpy as np
 import torch
@@ -41,12 +60,44 @@ from repro_torch.crypto.bigint import Modulus
 from repro_torch.kernels import ops
 
 BACKENDS = ("auto", "cuda", "torch")
+ENV_VAR = "REPRO_CRYPTO_ENGINE"
 PIPELINES = ("auto", "cios", "rns")
 PIPELINE_ENV_VAR = "REPRO_CRYPTO_PIPELINE"
 # Modulus width (bits of N: of n² for ciphertext ops) at and above which
 # ``auto`` routes to the RNS pipeline.  The reference's figure, measured
 # on a CPU in interpret mode; kept until an H100 measurement replaces it.
 RNS_MIN_BITS = 512
+
+
+def resolve_backend(name: str | None = None) -> str:
+    """Resolve a backend name to one of `BACKENDS`.  ``auto``/None/""
+    consults ``REPRO_CRYPTO_ENGINE`` and stays ``auto`` when it is unset
+    (the tensors' device decides).  Any other name, the reference's
+    ``jnp`` / ``pallas-interpret`` / ``pallas`` among them, raises."""
+    if name in (None, "", "auto"):
+        name = os.environ.get(ENV_VAR, "auto") or "auto"
+    if name not in BACKENDS:
+        raise ValueError(f"unknown crypto engine {name!r}; "
+                         f"choose from {BACKENDS}")
+    return name
+
+
+def mesh_axis_size(mesh, axis: str) -> int:
+    """Size of `mesh`'s dim named `axis` (a `DeviceMesh`'s `shape` is a
+    tuple in `mesh_dim_names` order).  Raises a ValueError for a mesh
+    without that dim, or with a size that is not a power of two (the
+    matvec's ⊕-combine is the `modmul_reduce` butterfly, which needs
+    one)."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if axis not in names:
+        raise ValueError(f"engine mesh has no axis {axis!r}; axes are "
+                         f"{names}")
+    size = int(mesh.shape[names.index(axis)])
+    if size & (size - 1):
+        raise ValueError(f"mesh axis {axis!r} has size {size}; the sharded "
+                         "⊕-combine (modmul_reduce butterfly) needs a power "
+                         "of two")
+    return size
 
 
 def resolve_pipeline(name: str | None = None) -> str:
@@ -70,10 +121,18 @@ class CryptoEngine:
     Fields:
       backend: ``"auto"`` | ``"cuda"`` | ``"torch"`` (see module doc).
       pipeline: ``"auto"`` | ``"cios"`` | ``"rns"`` (see module doc).
+      mesh: optional `DeviceMesh`; when set (and `shard_batch`), batched
+        ops split their rows over the ranks of its `mesh_axis` dim
+        (`distributed.he_sharding`).
+      mesh_axis: name of the mesh dim carrying the ciphertext batch.
+      shard_batch: master switch for the sharded routing.
     """
 
     backend: str = "auto"
     pipeline: str = "auto"
+    mesh: Any = None
+    mesh_axis: str = "data"
+    shard_batch: bool = True
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -82,6 +141,21 @@ class CryptoEngine:
         if self.pipeline not in PIPELINES:
             raise ValueError(f"unknown crypto pipeline {self.pipeline!r}; "
                              f"choose from {PIPELINES}")
+
+    @property
+    def sharded(self) -> bool:
+        """True when batched ops run split over `mesh_axis` (its size
+        checked by `mesh_axis_size`, which raises)."""
+        if self.mesh is None or not self.shard_batch:
+            return False
+        return mesh_axis_size(self.mesh, self.mesh_axis) > 1
+
+    def single_device(self) -> "CryptoEngine":
+        """This engine with the mesh dropped: the per-rank engine
+        `distributed.he_sharding` runs each shard on."""
+        if self.mesh is None:
+            return self
+        return CryptoEngine(backend=self.backend, pipeline=self.pipeline)
 
     def check_device(self, x: torch.Tensor) -> None:
         """Raise when `x`'s device would not run what the backend names."""
@@ -106,6 +180,9 @@ class CryptoEngine:
         broadcast against each other."""
         a = bigint.as_limbs(a)
         b = bigint.as_limbs(b, a.device)
+        if self.sharded:
+            from repro_torch.distributed import he_sharding
+            return he_sharding.sharded_mont_mul(self, a, b, mod)
         self.check_device(a)
         if self.route(mod) == "cios":
             return ops.montmul(a, b, mod)
@@ -119,6 +196,9 @@ class CryptoEngine:
             bits = bits.to(device=base.device, dtype=torch.int32)
         else:
             bits = bigint.const(np.asarray(bits), base.device, torch.int32)
+        if self.sharded:
+            from repro_torch.distributed import he_sharding
+            return he_sharding.sharded_mont_exp_bits(self, base, bits, mod)
         self.check_device(base)
         if self.route(mod) == "cios":
             return ops.mont_exp_fused(base, bits, mod)
@@ -140,6 +220,10 @@ class CryptoEngine:
         digits = torch.as_tensor(np.asarray(digits), device=cts.device) \
             if not isinstance(digits, torch.Tensor) else digits
         digits = digits.to(device=cts.device, dtype=torch.int32)
+        if self.sharded:
+            from repro_torch.distributed import he_sharding
+            return he_sharding.sharded_he_matvec(self, cts, digits, mod,
+                                                 window)
         self.check_device(cts)
         if self.route(mod) == "cios":
             return ops.he_matvec_fused(cts, digits, mod, window=window)
@@ -151,7 +235,8 @@ class CryptoEngine:
         `crypto.fixed_base.FixedBaseTable` for base h; digits (...,
         levels) LSB-first base-2^window digits, a tensor on the device
         the result should live on.  Always the RNS pipeline: the table
-        holds ·B-domain channel states."""
+        holds ·B-domain channel states.  Not split over a mesh, as in the
+        reference: noise is party-local, so each rank evaluates it whole."""
         digits = digits.to(torch.int32)
         self.check_device(digits)
         return ops.rns_fixed_base(table.operand(digits.device), digits, mod,
@@ -171,6 +256,40 @@ class CryptoEngine:
 
 
 def make(name: str | None = None, **kw) -> CryptoEngine:
-    """Build a `CryptoEngine` from a backend name (None → ``auto``);
-    ``pipeline=`` passes through."""
-    return CryptoEngine(backend=name or "auto", **kw)
+    """Build a `CryptoEngine` from a backend name (resolved like
+    `resolve_backend`); ``pipeline=``, ``mesh=`` and the other fields
+    pass through."""
+    return CryptoEngine(backend=resolve_backend(name), **kw)
+
+
+_DEFAULT: CryptoEngine | None = None
+
+
+def get_engine() -> CryptoEngine:
+    """Process-default engine (env-resolved on first use)."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = make()
+    return _DEFAULT
+
+
+def set_engine(engine: CryptoEngine | str | None) -> CryptoEngine:
+    """Install the process-default engine: a backend name (resolved via
+    `make`) or a ready `CryptoEngine`.  Returns it."""
+    global _DEFAULT
+    _DEFAULT = make(engine) if isinstance(engine, (str, type(None))) \
+        else engine
+    return _DEFAULT
+
+
+@contextlib.contextmanager
+def use_engine(engine: CryptoEngine | str | None):
+    """Switch the process-default engine for a block; yields the
+    installed engine and restores the previous default on exit."""
+    global _DEFAULT
+    prev = _DEFAULT
+    set_engine(engine)
+    try:
+        yield get_engine()
+    finally:
+        _DEFAULT = prev

@@ -67,3 +67,11 @@ def u64_bits_msb(a: R64, nbits: int = 64) -> torch.Tensor:
     full = torch.cat([(a.hi[..., None] >> shifts) & 1,
                       (a.lo[..., None] >> shifts) & 1], dim=-1)
     return full[..., 64 - nbits:]
+
+
+def int_bits_msb(x, nbits: int) -> np.ndarray:
+    """Non-negative int32/uint32 host values -> MSB-first uint32 bit
+    vectors (…, nbits)."""
+    x = np.asarray(x).astype(np.uint32)
+    shifts = np.arange(nbits - 1, -1, -1, dtype=np.uint32)
+    return (x[..., None] >> shifts) & np.uint32(1)

@@ -4,7 +4,8 @@
   draws as the reference, so the same seed gives the same keys.
 * Enc / Dec / ⊕ run on int64 limb tensors on the tensors' device;
   ciphertexts live in the Montgomery domain mod n² end to end, and every
-  hot loop dispatches through a `crypto.engine.CryptoEngine`.
+  hot loop dispatches through a `crypto.engine.CryptoEngine`: the one
+  passed as `engine`, or the process default (`engine.get_engine()`).
 * Plaintexts are non-negative integers < n; ring-2^64 semantics are
   recovered by reducing decrypted integers mod 2^64.
 """
@@ -21,7 +22,12 @@ from repro_torch.crypto.bigint import (LIMB_BITS, Modulus, add_small,
                                        as_limbs, big_mul_full, const,
                                        int_to_bits, int_to_limbs, mul_low,
                                        sub_small)
+from repro_torch.crypto import engine as engine_mod
 from repro_torch.crypto.engine import CryptoEngine
+
+
+def _eng(engine: CryptoEngine | None) -> CryptoEngine:
+    return engine if engine is not None else engine_mod.get_engine()
 
 # ---------------------------------------------------------------------------
 # Host-side prime generation (identical draws to the reference)
@@ -240,15 +246,19 @@ def raw_noise(pub: PublicKey, batch: int,
     return np.concatenate([r, pad], axis=-1)
 
 
-def noise_to_mont(pub: PublicKey, r_limbs, engine: CryptoEngine,
-                  device) -> torch.Tensor:
-    """r -> r^n mod n², Montgomery domain."""
-    rm = engine.to_mont(as_limbs(r_limbs, device), pub.mod_n2)
-    return engine.mont_exp_const(rm, pub.n, pub.mod_n2)
+def noise_to_mont(pub: PublicKey, r_limbs,
+                  engine: CryptoEngine | None = None,
+                  device=None) -> torch.Tensor:
+    """r -> r^n mod n², Montgomery domain (on `device`; None: the limbs'
+    own, the CPU for host arrays)."""
+    eng = _eng(engine)
+    rm = eng.to_mont(as_limbs(r_limbs, device), pub.mod_n2)
+    return eng.mont_exp_const(rm, pub.n, pub.mod_n2)
 
 
-def noise_from_table(pub: PublicKey, table, rho_digits, engine: CryptoEngine,
-                     device) -> torch.Tensor:
+def noise_from_table(pub: PublicKey, table, rho_digits,
+                     engine: CryptoEngine | None = None,
+                     device=None) -> torch.Tensor:
     """Table-backed encryption noise h^ρ mod n², Montgomery domain — the
     short-exponent form of `noise_to_mont` (h = x^n is fixed at keygen,
     ρ is fresh and short), from a `crypto.fixed_base.FixedBaseTable` in
@@ -260,12 +270,13 @@ def noise_from_table(pub: PublicKey, table, rho_digits, engine: CryptoEngine,
             "noise table was built for a different public key")
     digits = torch.as_tensor(np.asarray(rho_digits).astype(np.int32),
                              device=device)
-    return engine.fixed_base_exp(table, digits, pub.mod_n2)
+    return _eng(engine).fixed_base_exp(table, digits, pub.mod_n2)
 
 
 def encrypt_with_noise(pub: PublicKey, m_limbs, rn_mont,
-                       engine: CryptoEngine) -> torch.Tensor:
+                       engine: CryptoEngine | None = None) -> torch.Tensor:
     """Enc(m; r) = (1 + m n) * r^n mod n², given precomputed r^n."""
+    engine = _eng(engine)
     m = as_limbs(m_limbs)
     mn = big_mul_full(m, const(pub.n_limbs, m.device), pub.Ln2)
     c0 = add_small(mn, 1)
@@ -273,8 +284,9 @@ def encrypt_with_noise(pub: PublicKey, m_limbs, rn_mont,
                            as_limbs(rn_mont, m.device), pub.mod_n2)
 
 
-def encrypt(pub: PublicKey, m_limbs, engine: CryptoEngine,
+def encrypt(pub: PublicKey, m_limbs, engine: CryptoEngine | None = None,
             rng: np.random.Generator | None = None) -> torch.Tensor:
+    engine = _eng(engine)
     m = as_limbs(m_limbs)
     batch = int(np.prod(m.shape[:-1])) if m.dim() > 1 else 1
     r = raw_noise(pub, batch, rng).reshape(tuple(m.shape[:-1]) + (pub.Ln2,))
@@ -282,10 +294,12 @@ def encrypt(pub: PublicKey, m_limbs, engine: CryptoEngine,
                               engine)
 
 
-def decrypt(priv: PrivateKey, c_mont, engine: CryptoEngine) -> torch.Tensor:
+def decrypt(priv: PrivateKey, c_mont, engine: CryptoEngine | None = None
+            ) -> torch.Tensor:
     """Decryption without the CRT: m = L(c^λ mod n²) · μ mod n, one
     ladder on n² with the |λ|-bit exponent.  Returns plaintext limbs
     (…, Ln), identical to `decrypt_crt`'s."""
+    engine = _eng(engine)
     pub = priv.pub
     c = as_limbs(c_mont)
     dev = c.device
@@ -308,12 +322,12 @@ def _dec_component(comp: CRTComponent, c_modp2_mont,
     return eng.mont_mul(k, const(comp.h_mont, dev), comp.mod_p)
 
 
-def decrypt_crt(priv: PrivateKey, c_mont, engine: CryptoEngine
-                ) -> torch.Tensor:
+def decrypt_crt(priv: PrivateKey, c_mont,
+                engine: CryptoEngine | None = None) -> torch.Tensor:
     """CRT decryption: two half-size ladders with half-size exponents,
     then Garner recombination m = m_p + p·((m_q − m_p)·p⁻¹ mod q).
     Returns plaintext limbs (…, Ln)."""
-    eng = engine
+    eng = _eng(engine)
     pub = priv.pub
     cp, cq = priv.crt_p, priv.crt_q
     c = as_limbs(c_mont)
@@ -357,29 +371,31 @@ def _reduce_mod(x: torch.Tensor, mod: Modulus,
     return acc
 
 
-def add_ct(pub: PublicKey, c1, c2, engine: CryptoEngine) -> torch.Tensor:
+def add_ct(pub: PublicKey, c1, c2, engine: CryptoEngine | None = None
+           ) -> torch.Tensor:
     """[[a]] ⊕ [[b]] = [[a + b mod n]]."""
-    return engine.mont_mul(as_limbs(c1), as_limbs(c2), pub.mod_n2)
+    return _eng(engine).mont_mul(as_limbs(c1), as_limbs(c2), pub.mod_n2)
 
 
-def smul_bits(pub: PublicKey, c, exp_bits, engine: CryptoEngine
-              ) -> torch.Tensor:
+def smul_bits(pub: PublicKey, c, exp_bits,
+              engine: CryptoEngine | None = None) -> torch.Tensor:
     """[[a]] ⊗ k = [[a * k mod n]], k given as an MSB-first bit vector
     (one per row, or one shared).  Constant-time ladder."""
-    return engine.mont_exp_bits(as_limbs(c), exp_bits, pub.mod_n2)
+    return _eng(engine).mont_exp_bits(as_limbs(c), exp_bits, pub.mod_n2)
 
 
-def smul_const(pub: PublicKey, c, k: int, engine: CryptoEngine
-               ) -> torch.Tensor:
+def smul_const(pub: PublicKey, c, k: int,
+               engine: CryptoEngine | None = None) -> torch.Tensor:
     if k < 0:
         raise ValueError("lift negative multipliers to residues first")
-    return engine.mont_exp_const(as_limbs(c), k, pub.mod_n2)
+    return _eng(engine).mont_exp_const(as_limbs(c), k, pub.mod_n2)
 
 
-def hom_sum(pub: PublicKey, c, axis: int = 0, *, engine: CryptoEngine
-            ) -> torch.Tensor:
+def hom_sum(pub: PublicKey, c, axis: int = 0, *,
+            engine: CryptoEngine | None = None) -> torch.Tensor:
     """⊕-reduce a batch of ciphertexts along `axis`: a halving tree, the
     odd tail carried to the next level (the reference's schedule)."""
+    engine = _eng(engine)
     c = torch.movedim(as_limbs(c), axis, 0)
     while c.shape[0] > 1:
         half = c.shape[0] // 2

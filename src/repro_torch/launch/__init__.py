@@ -1,2 +1,3 @@
 """Launchers: the localhost socket cluster of party processes
-(`launch.cluster`)."""
+(`launch.cluster`), and device meshes over a `torch.distributed` world
+with `run_world`, which spawns one on this host (`launch.mesh`)."""

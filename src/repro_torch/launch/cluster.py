@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.comm import CommMeter
+from repro_torch.crypto import engine as engine_mod
 from repro_torch.distributed import compression as comp_lib
 from repro_torch.runtime import chaos as chaos_lib
 from repro_torch.runtime import messages as msg
@@ -134,6 +135,11 @@ class SocketCluster:
         if parties[0].name != "C":
             raise ValueError("parties[0] must be C")
         validate_key_bits(cfg, mask_bound_bits(cfg))   # fail before spawning
+        if engine_mod.get_engine().sharded:
+            raise ValueError(
+                "the process-default crypto engine is sharded, but a socket "
+                "party is a process of its own with no process group: it "
+                "would run unsharded; reset the default (set_engine(None))")
         self.parties = list(parties)
         self.names = [p.name for p in parties]
         self.y = np.asarray(y, np.float64)

@@ -105,7 +105,7 @@ def dot(x: tuple[R64, R64], y: tuple[R64, R64],
 # ---------------------------------------------------------------------------
 
 def paillier_triple(shape, key0: paillier.PrivateKey,
-                    rng: np.random.Generator, key, *, engine, device
+                    rng: np.random.Generator, key, *, engine=None, device
                     ) -> tuple[TripleShares, TripleShares]:
     """P0 owns key0.  P0 samples (a0, b0), P1 samples (a1, b1, r).
     P1 computes [[a0]]⊗b1 ⊕ [[b0]]⊗a1 ⊕ [[r]] and returns it; then
@@ -113,7 +113,8 @@ def paillier_triple(shape, key0: paillier.PrivateKey,
     The decrypted integer a0·b1 + b0·a1 + r stays below n (2^129 + 2^104
     at most), so reducing it mod 2^64 is exact; hence key_bits ≥ 192.
     `key` is a threefry key (`crypto.threefry`); the encryption noise and
-    the 104-bit mask r come from `rng`, in the reference's order."""
+    the 104-bit mask r come from `rng`, in the reference's order.
+    `engine` None: the process default (`crypto.engine.get_engine()`)."""
     pub = key0.pub
     if pub.key_bits < 192:
         raise ValueError("paillier_triple needs >=192-bit keys for exactness")

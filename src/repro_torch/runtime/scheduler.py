@@ -88,6 +88,22 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
+def refuse_sharded_pool(backend, transport) -> None:
+    """A sharded crypto engine calls a collective in every batched op,
+    and collectives must come in the same order on every rank; a
+    transport's thread pool (the noise prefetch, the legs' fan-out)
+    calls ops from several threads in an order that differs between
+    ranks, so the pair is refused rather than left to hang."""
+    engine = getattr(backend, "engine", None)
+    if transport.executor is not None and engine is not None \
+            and engine.sharded:
+        raise ValueError(
+            "a sharded crypto engine cannot run under a transport with a "
+            "thread pool (PipelinedTransport): its collectives must be "
+            "called in the same order on every rank, and the pool calls "
+            "them from several threads; use LocalTransport")
+
+
 class VFLScheduler:
     """Drives Algorithm 1 over Party actors.
 
@@ -122,6 +138,7 @@ class VFLScheduler:
         if backend is None:
             # consumes the protocol stream's first k draws as key seeds
             backend = trainer_lib.make_backend(cfg, self.names, self.rng)
+        refuse_sharded_pool(backend, self.transport)
         self.backend = backend
         self.dealer = beaver.DealerTripleSource(
             seed=seeds.dealer_seed(cfg.seed), device=self.device)
