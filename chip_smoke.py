@@ -153,10 +153,28 @@ tensors; (b) Table 1 at paper width through `train_vfl` with a
 local run on the card (losses, weights, bytes by tag, rounds), K1
 launched the local run's count plus one a matvec, K2 and K3 the local
 run's, K4–K8 not at all, K1–K3 held against their plain versions at
-every shape the ranks launched them at; (c) the same with the CIOS
+every shape the ranks launched them at; (b') the same run under
+`PipelinedTransport`, with and without concurrent legs (the pool's jobs
+in lanes of their own), equal to the local run with the local sharded
+run's K1–K3 launches and collectives; (c) the same with the CIOS
 pipeline pinned (K5–K7; K1–K4 none).  Per rank: host s/iteration,
 device time, collectives and their host time; the device memory of the
 two rank contexts.
+Then the secure dry-run (`phase_secure_dryrun`, also alone as
+``python3 chip_smoke.py --secure-dryrun``): `launch.secure_dryrun`'s
+Protocol-3 step in a world of 8 ranks on the one card (`--mesh 2x2x2`,
+pod = party, data and model shards) at the reference's widths (30720
+samples, 32 features, 1024-bit keys, width 22): both shard modes at
+window 4 and `feature` at window 1 on RNS (K1), `feature` at window 4
+with CIOS pinned (K5).  Each: the products a rank equal to the analytic
+count less one m_loc block a level, the gathered gradient equal to one
+K3 matvec of the full (n, m), the ring words equal to X^T⟨d⟩ mod 2^64
+on the host, log2 of the sample axes' exchanges, K1 or K5 launched once
+a product call and held against its plain version at every shape; the
+K3 route launched twice (once a pod) and nothing else, held at its
+shape; then the report's socket resume and chaos drills and the serving
+report (no kernel in this process), and the fixed-base table report at
+1024-bit keys (K1, K2 and K4 twice each, held at their shapes).
 Device time is the sum over the profiler's device events (a torch op's
 own event repeats its kernels' time).
 """
@@ -893,12 +911,13 @@ def path_shapes() -> dict:
 
 
 def hold_at_shapes(label: str, shapes: dict) -> int:
-    """K1, K2 and K3 against their plain versions on the card at every
-    shape of `shapes` (`path_shapes`): random states of that shape on the
-    1024-bit key's context of its CH, random bits (per-row or shared as
-    launched) or digits (the matvec also at all-max digits), with the
-    launch shape the path used; every output equal channel for channel.
-    Returns the number of outputs held."""
+    """K1, K2 and K3 (and K4 where `shapes` has its launches) against
+    their plain versions on the card at every shape of `shapes`
+    (`path_shapes`): random states of that shape on the 1024-bit key's
+    context of its CH, random bits (per-row or shared as launched),
+    digits (the matvec also at all-max digits) or a random table, with
+    the launch shape the path used; every output equal channel for
+    channel.  Returns the number of outputs held."""
     import numpy as np
     import torch
     from repro_torch.bench import matvec_check, round_check
@@ -947,8 +966,21 @@ def hold_at_shapes(label: str, shapes: dict) -> int:
                  montexp.rns_he_matvec_tiled(u, dg, c, window=window,
                                              shape=sh),
                  montexp.plain_matvec(u, dg, c, window, sh.chunk, sh.split))
-    log(f"[{label}] K1-K3 equal to their plain versions at every shape "
-        f"they launched at ({len(held)} outputs): " + "; ".join(held))
+    for rows, ch, levels, window in shapes.get("rns_fixed_base", {}):
+        c = ctx_of(ch)
+        table = _random_states(c, levels << window, gen, dev).reshape(
+            levels, 1 << window, c.CH).contiguous()
+        dg = torch.as_tensor(gen.integers(0, 1 << window,
+                                          size=(rows, levels)),
+                             dtype=torch.int32, device=dev)
+        sh = montexp.fixed_base_shape(rows, levels, window, c, "cuda")
+        hold(f"rns_fixed_base ({rows}, {ch}) x {levels} levels, window "
+             f"{window}",
+             montexp.rns_fixed_base_tiled(montexp.fixed_base_operand(table),
+                                          dg, c, window=window, shape=sh),
+             montexp.plain_fixed_base(table, dg, c, sh.segments))
+    log(f"[{label}] the RNS kernels equal to their plain versions at every "
+        f"shape they launched at ({len(held)} outputs): " + "; ".join(held))
     return len(held)
 
 
@@ -1401,8 +1433,15 @@ OFF_RNS_PATH = ("rns_fixed_base", "montmul", "mont_exp", "he_matvec",
                 "ring_matmul")
 
 
+#: iterations of each paper row in the smoke: the paper's data, widths
+#: and keys, cut from its 30 iterations for the run's time (the later
+#: iterations repeat the same path; Table 1's row is `phase_train`'s run)
+PAPER_ITERS = ITERS
+
+
 def paper_table(results, mod, label: str, metric_keys):
-    """One table at paper scale through `mod.run`: its Paillier row
+    """One table at paper scale (`PAPER_ITERS` iterations) through
+    `mod.run`: its Paillier row
     counted (K1–K3 launched, K4–K8 not) and profiled; its results kept
     for the SS comparison."""
     import dataclasses
@@ -1420,7 +1459,8 @@ def paper_table(results, mod, label: str, metric_keys):
         return res
     t0 = time.perf_counter()
     try:
-        rows = mod.run(paper_scale=True, device="cuda", call=call)
+        rows = mod.run(paper_scale=True, iters=PAPER_ITERS, device="cuda",
+                       call=call)
     except RuntimeError as e:        # a Paillier row that differs from mock
         fail(f"{label}: {e}")
     total_s = time.perf_counter() - t0
@@ -1470,7 +1510,7 @@ def paper_ss_on_cpu(kept):
     import dataclasses
     from repro_torch.baselines import ss_glm, ss_he_lr
     from repro_torch.bench import table1_lr, tables
-    s = table1_lr.setup(paper_scale=True, device="cpu")
+    s = table1_lr.setup(paper_scale=True, iters=PAPER_ITERS, device="cpu")
     for name, fn in (("SS-LR", ss_glm.train_ss),
                      ("SS-HE-LR", ss_he_lr.train_ss_he)):
         t0 = time.perf_counter()
@@ -2536,10 +2576,11 @@ def sharded_keys():
     return {p: paillier.keygen(1024, seed=s) for p, s in SHARDED_SEEDS.items()}
 
 
-def sharded_table1(engine, keys, iters: int = ITERS):
+def sharded_table1(engine, keys, iters: int = ITERS, transport=None):
     """Table 1 at paper width (`iters` iterations) with its Paillier
-    backend on `engine`: the same keys and noise stream in every run of
-    the phase, so sharded and local runs are the same computation."""
+    backend on `engine` (over `transport`, None: LocalTransport): the
+    same keys and noise stream in every run of the phase, so sharded and
+    local runs are the same computation."""
     import numpy as np
     from repro_torch.core import protocols
     from repro_torch.core.trainer import VFLConfig, train_vfl
@@ -2548,7 +2589,7 @@ def sharded_table1(engine, keys, iters: int = ITERS):
                          **table1_kw(), "max_iter": iters}),
                      backend=protocols.PaillierBackend(
                          keys, np.random.default_rng(0), engine,
-                         device="cuda"))
+                         device="cuda"), transport=transport)
 
 
 def _pinned(pipeline: str):
@@ -2685,8 +2726,9 @@ def gloo_cuda_probe(mesh) -> dict:
 def sharded_rank(run_cios: bool) -> dict:
     """One rank of phase_sharded's world (gloo, both ranks on cuda:0):
     (a) the op checks, the gloo probe; (b) Table 1 on the RNS pipeline,
-    counted (launches, shapes, collectives), then one iteration
-    profiled; the device memory in use with both contexts up; (c) with
+    counted (launches, shapes, collectives), the same under
+    `PipelinedTransport` with and without concurrent legs, counted, then
+    one iteration profiled; the device memory in use with both contexts up; (c) with
     ``run_cios`` the same run with the CIOS pipeline pinned, counted.
     Returns the rank's seconds by part in ``t``."""
     import torch
@@ -2723,6 +2765,21 @@ def sharded_rank(run_cios: bool) -> dict:
                              for k in secure_ops.stats.calls})
             lap(f"{pipeline} counted")
             if pipeline == "rns":
+                from repro_torch.runtime.transport import PipelinedTransport
+                for legs in (True, False):
+                    secure_ops.stats.reset()
+                    res, launches, wall, peak = counted_run(
+                        lambda: sharded_table1(
+                            eng, keys, transport=PipelinedTransport(
+                                concurrent_legs=legs)))
+                    out[f"pipelined legs={legs}"] = dict(
+                        res=res, launches=launches, wall_s=wall,
+                        peak_bytes=peak, shapes=path_shapes(),
+                        collectives={k: (secure_ops.stats.calls[k],
+                                         secure_ops.stats.seconds[k],
+                                         secure_ops.stats.bytes[k])
+                                     for k in secure_ops.stats.calls})
+                    lap(f"pipelined legs={legs}")
                 dist.barrier()                   # both contexts are up
                 if rank == 0:
                     out["mem_used_mib"] = gpu_mem_used_mib()
@@ -2735,6 +2792,44 @@ def sharded_rank(run_cios: bool) -> dict:
                 lap("rns profiled")
     out["rank_s"] = time.perf_counter() - t0
     return out
+
+
+def check_pipelined_sharded(label: str, r: dict, local_res, shapes) -> dict:
+    """A rank's pipelined sharded runs (concurrent legs, barrier sweeps):
+    each equal to the local run (losses, weights, bytes by tag, rounds),
+    K1-K3 launched as often as the rank's local sharded run and K4-K8
+    not, the same collectives; their shapes join `shapes`."""
+    from repro_torch.bench import tables
+    rows = {}
+    for legs in (True, False):
+        got = r[f"pipelined legs={legs}"]
+        name = f"{label} pipelined concurrent_legs={legs}"
+        try:
+            tables.require_equal(name, got["res"], local_res)
+        except RuntimeError as e:
+            fail(f"{e} (against the local run on the card)")
+        require(name, got["launches"], positive=RNS_PATH,
+                zero=[k for k in KERNELS if k not in RNS_PATH],
+                exact={k: r["rns"]["launches"][k] for k in RNS_PATH})
+        calls = {k: c[0] for k, c in got["collectives"].items()}
+        want = {k: c[0] for k, c in r["rns"]["collectives"].items()}
+        if calls != want:
+            fail(f"{name}: collectives {calls}, the local sharded run's "
+                 f"{want}")
+        for x, c in got["shapes"].items():
+            for sh, n in c.items():
+                shapes[x][sh] = shapes[x].get(sh, 0) + n
+        s_it = got["res"].runtime_s / ITERS
+        rows[f"legs={legs}"] = dict(
+            s_per_iter=s_it, wall_s=got["wall_s"],
+            collective_s=sum(c[1] for c in got["collectives"].values()),
+            launches={k: got["launches"][k] for k in RNS_PATH})
+        log(f"[{name}] Table 1, {ITERS} iterations: {s_it:.4f} s/iteration "
+            f"(local sharded run {r['rns']['res'].runtime_s / ITERS:.4f}); "
+            f"equal to the local run; launches and collectives the local "
+            f"sharded run's ({json.dumps(calls)}, "
+            f"{rows[f'legs={legs}']['collective_s']:.3f} s of host time)")
+    return rows
 
 
 def matvec_fold_depth(rows: int, mod) -> int:
@@ -2759,9 +2854,13 @@ def phase_sharded(results):
     (losses, weights, bytes by tag, rounds); K1 the local run's launches
     plus one a matvec (its butterfly step), K2 and K3 the local run's,
     K4-K8 none; K1-K3 held against their plain versions at every shape
-    the ranks launched them at.  (c) the same with the CIOS pipeline
-    pinned: K6 and K7 the local run's, K5 the local run's less the
-    matvec folds' lost depth plus the butterfly, K1-K4 none.  Prints
+    the ranks launched them at.  (b') the same sharded run under
+    `PipelinedTransport` with concurrent legs and with barrier sweeps
+    (the pool's jobs in lanes): equal to the local run, K1-K3 and the
+    collectives those of the rank's local sharded run.  (c) the same
+    with the CIOS pipeline pinned: K6 and K7 the local run's, K5 the
+    local run's less the matvec folds' lost depth plus the butterfly,
+    K1-K4 none.  Prints
     per rank host s/iteration, device time, collectives and their host
     time, and the device memory of the second context."""
     from repro_torch.bench import tables
@@ -2845,6 +2944,8 @@ def phase_sharded(results):
                 f"local run; {n_coll} collectives, {coll_s:.3f} s of host "
                 f"time ({json.dumps(got['collectives'])}); launches "
                 f"{got['launches']}")
+        row["pipelined"] = check_pipelined_sharded(
+            label, r, local["rns"]["res"], shapes)
         row.update(profile=r["profile"], t=r["t"])
         log(f"[{label}] device time of a profiled RNS iteration "
             f"{r['profile']['all_device_ms']:.2f} ms (by kernel "
@@ -2872,6 +2973,249 @@ def phase_sharded(results):
         f"iteration's device time {local['device_ms']:.2f} ms")
     out.update(held_at_shapes=held, phase_s=time.perf_counter() - t_phase)
     results["_sharded"] = out
+
+
+# -- the secure dry-run: the Protocol-3 step on a pod x data x model world --
+
+DRYRUN_MESH = "2x2x2"
+#: (shard mode, window, pinned pipeline) of the dry-run phase, one world
+DRYRUN_CONFIGS = (("feature", 4, None), ("sample2d", 4, None),
+                  ("feature", 1, None), ("feature", 4, "cios"))
+#: the per-rank analytic counts at 30720 x 32, 2048-bit n², window 4
+DRYRUN_ANALYTIC = {"feature": 1690096, "sample2d": 1583104}
+
+
+def dryrun_rank(specs):
+    """One rank of the dry-run world: `secure_dryrun._rank_step` for each
+    configuration, every launch count set to 0 just before and read just
+    after (its cold step and its warm, profiled one), with the shapes K1-K3
+    launched at; rank 0 also reads the card's memory in use once every
+    context is up."""
+    import torch.distributed as dist
+    from repro_torch.launch import secure_dryrun
+    out = []
+    for spec in specs:
+        reset_counts()
+        r = secure_dryrun._rank_step(spec)
+        r["launches"] = {k: w.launches for k, w in wrappers().items()}
+        r["shapes"] = path_shapes()
+        if not out:
+            dist.barrier()
+            r["mem_used_mib"] = gpu_mem_used_mib() \
+                if dist.get_rank() == 0 else None
+        out.append(r)
+    return out
+
+
+def phase_secure_dryrun(results):
+    """`launch.secure_dryrun` on the card: the CLI's parse, world, step
+    and report in a world of 8 ranks on cuda:0 (`--mesh 2x2x2`, the
+    reference's full widths: 30720 samples, 32 features, 1024-bit keys,
+    width 22): both shard modes at window 4 and `feature` at window 1 on
+    RNS (K1), and `feature` at window 4 with CIOS pinned (K5).  Each run:
+    every rank's products equal to `issued_montmuls` (the analytic count
+    less one m_loc block a level); the pod's gathered encrypted gradient
+    equal to one `protocols.he_matvec` (K3, window 4) of the full (n, m)
+    here; the ring words equal to X^T⟨d⟩ mod 2^64 on the host; log2
+    (data) exchanges (+ log2(model) in sample2d) and one all_reduce a
+    sample axis; the product kernel launched once a product call of the
+    two steps (cold, and warm under the profiler) and no other kernel, held against its plain version at
+    every shape it launched at.  Then the report's optional blocks:
+    `measured_comm` over sockets with checkpoints and the resume drill,
+    and under `--chaos lossy`; `serving_report`; `tables_report` at
+    1024-bit keys.  The K3 route and `tables_report` are counted too,
+    each launch count required exactly and every kernel they launch held
+    against its plain version at its shapes."""
+    import tempfile
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.core import protocols
+    from repro_torch.crypto import engine
+    from repro_torch.kernels import build, montmul
+    from repro_torch.launch import secure_dryrun as sd
+    t_phase = time.perf_counter()
+    build.load()                       # the ranks load what this built
+    configs = []
+    for mode, window, pipeline in DRYRUN_CONFIGS:
+        with _pinned(pipeline):
+            configs.append(sd.parse_args([
+                "--mesh", DRYRUN_MESH, "--samples", "30720", "--features",
+                "32", "--key-bits", "1024", "--width", "22", "--window",
+                str(window), "--shard-mode", mode, "--engine", "cuda"]))
+    mem_before = gpu_mem_used_mib()
+    t_world = time.perf_counter()
+    worlds = sd.run_step_world(configs, outputs=True, timeout_s=900,
+                               rank_fn=dryrun_rank)
+    t_world = time.perf_counter() - t_world
+    mem_world = worlds[0][0][0]["mem_used_mib"] - mem_before
+    args0 = configs[0]
+    mod = sd.dryrun_modulus(args0.key_bits)
+    inp = sd.step_inputs(mod, args0.samples, args0.features, args0.width)
+    # the independent routes: one K3 matvec a pod (counted, and held at
+    # its shape); the ring term on the host
+    pub = types.SimpleNamespace(mod_n2=mod)
+    eng = engine.make("cuda", pipeline="rns")
+    want_enc, route_launches, _, _ = counted_run(lambda: np.stack([
+        protocols.he_matvec(pub, torch.as_tensor(inp["cts"][p],
+                                                 device="cuda"),
+                            inp["exps"][p], args0.width, eng,
+                            window=4).cpu().numpy() for p in range(2)]))
+    route_shapes = path_shapes()
+    require("secure dry-run he_matvec route", route_launches,
+            zero=[k for k in KERNELS if k != "rns_he_matvec"],
+            exact={"rns_he_matvec": 2})
+    held = hold_at_shapes("secure dry-run he_matvec route", route_shapes)
+    log(f"[secure dry-run] the he_matvec route: K3 "
+        f"{route_launches['rns_he_matvec']} launches at "
+        f"{[sh[:4] for sh in route_shapes['rns_he_matvec']]}, no other "
+        "kernel")
+    x = (inp["exps"].astype(np.int64) - (1 << (args0.width - 1))) \
+        .view(np.uint64)
+    d = (inp["d_hi"].astype(np.uint64) << np.uint64(32)) \
+        | inp["d_lo"].astype(np.uint64)
+    g = np.stack([x[p].T @ d[p] for p in range(2)])        # wraps mod 2^64
+    want_words = np.stack([g >> np.uint64(32), g & np.uint64(0xFFFFFFFF)],
+                          -1).astype(np.int64)
+    out = dict(mesh=DRYRUN_MESH, world=8, mem_world_mib=mem_world,
+               mem_before_mib=mem_before, runs=[],
+               route_launches=route_launches["rns_he_matvec"])
+    k1_shapes = {}
+    for args, (ranks, first) in zip(configs, worlds):
+        label = (f"secure dry-run {args.shard_mode} window {args.window} "
+                 f"{args.pipeline}")
+        rep = sd.report(args, ranks, first)
+        n_loc, m_loc, ladder = sd.local_shape(
+            args.dims, args.samples, args.features, args.shard_mode)
+        issued = sd.issued_montmuls(n_loc, m_loc, args.width, args.window,
+                                    ladder)
+        levels = args.width if args.window <= 1 else -(-args.width
+                                                       // args.window)
+        if not rep["ok"] or any(r["montmuls"] != issued for r in ranks):
+            fail(f"{label}: products a rank {rep['measured']} against "
+                 f"{issued} = analytic {rep['montmuls_per_dev']} - "
+                 f"{levels} x {m_loc}")
+        if args.window == 4 and rep["montmuls_per_dev"] \
+                != DRYRUN_ANALYTIC[args.shard_mode]:
+            fail(f"{label}: analytic count {rep['montmuls_per_dev']}")
+        enc, words = sd.gather_outputs(ranks, args.dims, args.shard_mode)
+        if not np.array_equal(enc, want_enc):
+            fail(f"{label}: the gathered encrypted gradient differs from "
+                 "one he_matvec of the full (n, m)")
+        if not np.array_equal(words, want_words):
+            fail(f"{label}: the ring words differ from X^T<d> mod 2^64")
+        hops = 1 if args.shard_mode == "feature" else 2
+        if rep["collectives"]["op_counts"] != {"exchange": hops,
+                                               "all_reduce": hops}:
+            fail(f"{label}: collectives {rep['collectives']}")
+        kernel = "montmul" if args.pipeline == "cios" else "rns_montmul"
+        for r in ranks:
+            calls = 2 * sum(r["montmul_calls"].values())
+            require(f"{label} rank {r['coord']}", r["launches"],
+                    positive=[kernel],
+                    zero=[k for k in KERNELS if k != kernel],
+                    exact={kernel: calls})
+        rows = sorted(set().union(*(r["montmul_calls"] for r in ranks)))
+        if kernel == "rns_montmul":            # held once a shape, below
+            for r in ranks:
+                for sh, n in r["shapes"]["rns_montmul"].items():
+                    k1_shapes[sh] = k1_shapes.get(sh, 0) + n
+        else:
+            gen = np.random.default_rng(37)
+            for b in rows:
+                a = _random_limbs(mod, b, gen, torch.device("cuda"))
+                c = _random_limbs(mod, b, gen, torch.device("cuda"))
+                got = montmul.montmul_tiled(a, c, mod)
+                want = montmul.plain_cios(a, c, mod)
+                if not torch.equal(got, want):
+                    fail(f"{label}: montmul ({b}, {mod.L}) differs from the "
+                         f"plain version ({_max_err(got, want)})")
+                held += 1
+            log(f"[{label}] K5 equal to its plain version at every shape "
+                f"it launched at: rows {rows}")
+        row = {k: rep[k] for k in ("shard_mode", "window",
+                                   "montmuls_per_dev", "first_step_s",
+                                   "step_s", "peak_bytes_per_dev",
+                                   "compute_s", "memory_s", "collective_s")}
+        row.update(pipeline=args.pipeline, issued=issued,
+                   measured=rep["measured"], launches=ranks[0]["launches"],
+                   collectives=rep["collectives"],
+                   product_shapes=len(rows))
+        out["runs"].append(row)
+        log(f"[{label}] 8 ranks: gathered gradient = he_matvec, ring words "
+            f"= X^T<d> mod 2^64; products a rank {issued} = analytic "
+            f"{rep['montmuls_per_dev']} - {levels} x {m_loc}; "
+            f"{kernel} {ranks[0]['launches'][kernel]} launches a rank "
+            f"(2 steps); collectives {json.dumps(rep['collectives'])}; "
+            f"first step {rep['first_step_s']:.2f} s, warm step "
+            f"{rep['step_s']:.3f} s (slowest rank), device s a rank "
+            f"{[round(v, 4) for v in rep['measured']['device_s_per_rank']]}"
+            f", collective s a rank "
+            f"{[round(v, 4) for v in rep['measured']['collective_s_per_rank']]}"
+            f", peak {rep['peak_bytes_per_dev'] / 2**20:.0f} MiB a rank; "
+            f"roofline compute {rep['compute_s']:.5f} s, memory "
+            f"{rep['memory_s']:.6f} s, collective {rep['collective_s']:.8f} s")
+        results.setdefault(kernel, {}).setdefault("dryrun_launches", {})[
+            f"{args.shard_mode}/w{args.window}"] = \
+            ranks[0]["launches"][kernel]
+    held += hold_at_shapes("secure dry-run, RNS steps", {
+        "rns_montmul": k1_shapes, "rns_mont_exp": {}, "rns_he_matvec": {}})
+    t_checks = time.perf_counter() - t_phase - t_world
+    log(f"[secure dry-run] the world's 8 contexts: +{mem_world:.0f} MiB of "
+        f"device memory ({mem_before:.0f} MiB in use before); the world "
+        f"{t_world:.1f} s, the checks {t_checks:.1f} s")
+    t_drills = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sd-") as tmp:
+        # mock HE here; the socket runs' parties are processes of their own
+        (drills, serving), d_launches, _, _ = counted_run(lambda: ({
+            "resume": sd.measured_comm(
+                "socket", args0.features, args0.key_bits,
+                checkpoint_dir=os.path.join(tmp, "ck"), resume_drill=True),
+            "chaos": sd.measured_comm("socket", args0.features,
+                                      args0.key_bits, chaos="lossy")},
+            sd.serving_report()))
+        require("secure dry-run measured_comm and serving", d_launches,
+                zero=KERNELS)
+        # 2 ladders (K1's to_mont round, K2) and 2 table walks (K4) of 4
+        # noises: the untimed call and the timed one of each
+        tables_rep, t_launches, _, _ = counted_run(lambda: sd.tables_report(
+            os.path.join(tmp, "noise.npz"), 1024, "cuda", nb=args0.samples,
+            m=args0.features))
+        t_shapes = dict(path_shapes(), rns_fixed_base=dict(
+            wrappers()["rns_fixed_base"].shapes))
+    tables_exact = {"rns_montmul": 2, "rns_mont_exp": 2, "rns_fixed_base": 2}
+    require("secure dry-run tables", t_launches,
+            zero=[k for k in KERNELS if k not in tables_exact],
+            exact=tables_exact)
+    held += hold_at_shapes("secure dry-run tables", t_shapes)
+    log(f"[secure dry-run] tables_report: launches "
+        f"{ {k: t_launches[k] for k in tables_exact} } at "
+        f"{ {k: [str(sh) for sh in t_shapes[k]] for k in tables_exact} }, "
+        "no other kernel; measured_comm and serving: no kernel here")
+    for k in tables_exact:
+        results.setdefault(k, {}).setdefault("dryrun_launches", {}).update(
+            {f"tables {sh}": n for sh, n in t_shapes[k].items()})
+    results.setdefault("rns_he_matvec", {})["dryrun_launches"] = {
+        f"route {sh[:4]}": n for sh, n in route_shapes["rns_he_matvec"].items()}
+    ck = drills["resume"]["checkpoint"]
+    if ck.get("resume_verdict") != "bit_identical" \
+            or not drills["resume"]["matches_analytic"]:
+        fail(f"secure dry-run resume drill: {json.dumps(drills['resume'])}")
+    if drills["chaos"]["chaos"]["chaos_verdict"] != "recovered_bit_exact":
+        fail(f"secure dry-run chaos drill: {json.dumps(drills['chaos'])}")
+    if serving["serve_verdict"] != "bit_identical" or not serving["wire_ok"]:
+        fail(f"secure dry-run serving report: {json.dumps(serving)}")
+    log(f"[secure dry-run] measured_comm socket + resume: "
+        f"{json.dumps(drills['resume'])}")
+    log(f"[secure dry-run] measured_comm socket + chaos lossy: "
+        f"{json.dumps(drills['chaos'])}")
+    log(f"[secure dry-run] serving: {json.dumps(serving)}")
+    log(f"[secure dry-run] fixed-base tables at 1024-bit keys: "
+        f"{json.dumps(tables_rep)}; the report blocks "
+        f"{time.perf_counter() - t_drills:.1f} s")
+    out.update(world_s=t_world, checks_s=t_checks, drills=drills, serving=serving, tables=tables_rep,
+               held_at_shapes=held, phase_s=time.perf_counter() - t_phase)
+    results["_secure_dryrun"] = out
 
 
 def phase_k1_shapes(results):
@@ -2998,6 +3342,12 @@ def main(argv=None):
                     help="only run the multi-device HE engine's phase "
                     "(a gloo world of 2 ranks on the card: sharded ops, "
                     "Table 1 sharded on both pipelines)")
+    ap.add_argument("--secure-dryrun", action="store_true",
+                    help="only run the secure dry-run's phase (the "
+                    "Protocol-3 step in a 2x2x2 world of 8 ranks on the "
+                    "card at 30720 x 32 and 1024-bit keys, both shard "
+                    "modes, windows 4 and 1, CIOS pinned; the socket, "
+                    "chaos, serving and table reports)")
     ap.add_argument("--chaos", action="store_true",
                     help="only run the chaos link layer's phase (Table 1 "
                     "over party processes under the gauntlet with zlib "
@@ -3069,6 +3419,12 @@ def main(argv=None):
             f"{time.perf_counter() - t_start:.1f} s; card {card}; summary "
             f"{json.dumps(results['_sharded'])}")
         return
+    if args.secure_dryrun:
+        phase_secure_dryrun(results)
+        log(f"[done] secure dry-run phase only, "
+            f"{time.perf_counter() - t_start:.1f} s; card {card}; summary "
+            f"{json.dumps(results['_secure_dryrun'], default=str)}")
+        return
     if args.paper:
         phase_paper(results, priv)
         log(f"[done] paper path only, {time.perf_counter() - t_start:.1f} "
@@ -3101,8 +3457,9 @@ def main(argv=None):
     timed(phase_pipelined, results, priv)
     timed(phase_paper, results, priv)
     timed(phase_serve, results, mock)
-    for phase in (phase_socket, phase_chaos, phase_sharded, phase_k1_shapes,
-                  phase_probe, phase_bench):
+    for phase in (phase_socket, phase_chaos, phase_sharded,
+                  phase_secure_dryrun, phase_k1_shapes, phase_probe,
+                  phase_bench):
         timed(phase, results)
     summary = {k: results.pop(k) for k in list(results) if k[0] == "_"}
     kernels = []
@@ -3118,9 +3475,11 @@ def main(argv=None):
         for extra in ("graph_ms", "shapes", "paper_launches",
                       "serve_launches", "serve_shapes", "socket_launches",
                       "codec_shapes", "chaos_launches",
-                      "sharded_launches"):
+                      "sharded_launches", "dryrun_launches"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
+        if "paper_launches" in r:      # the iterations they were counted over
+            kernels[-1]["paper_iters"] = PAPER_ITERS
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card {card}; "
         f"summary {json.dumps(summary)}")
     log(json.dumps({"kernels": kernels}))

@@ -23,6 +23,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
+from concurrent import futures
 
 import numpy as np
 import torch
@@ -187,11 +188,14 @@ class PaillierBackend:
         return fut.result()
 
     def discard_pooled_noise(self) -> None:
-        """Drop unconsumed prefetched batches (the scheduler calls this
-        at the end of each iteration, so a prefetch/consumption mismatch
-        cannot grow the pool)."""
+        """Drop unconsumed prefetched batches once they have finished
+        (the scheduler calls this at the end of each iteration, so a
+        prefetch/consumption mismatch cannot grow the pool, and the next
+        iteration's prefetches find their lanes free)."""
         with self._noise_lock:
+            pending = [fut for q in self._noise.values() for _, fut in q]
             self._noise.clear()
+        futures.wait(pending)
 
     def _encrypt(self, pub, m: torch.Tensor, party: str,
                  count: int) -> torch.Tensor:

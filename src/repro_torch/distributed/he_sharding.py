@@ -35,8 +35,11 @@ run takes; and the matvec partial runs the inner engine's
 always runs its CIOS kernel.
 
 Collectives run in program order, so every rank must call the same
-ops in the same order from one thread: a thread pool issuing
-sharded ops (`runtime.PipelinedTransport`) is refused.
+ops in the same order on each process group.  The program's thread uses
+the mesh's own groups; a job of a thread pool (`runtime
+.PipelinedTransport`: the noise prefetch, the legs, the deliveries) runs
+in a lane with groups of its own (`secure_ops.in_lane`, `open_lanes`), and
+`_axis` picks the lane's group.
 """
 from __future__ import annotations
 

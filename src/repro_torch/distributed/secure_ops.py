@@ -18,13 +18,27 @@ collective.
 Under gloo, CUDA tensors go through host memory, here and nowhere else:
 gloo's point-to-point ops read a tensor's storage as host memory.  Every
 collective is counted in `stats` (calls, host seconds and bytes by
-kind).  Collectives must come in the same order on every rank, so
-each rank calls them from one thread.
+kind).
+
+Lanes.  A process group runs its collectives in the order they are
+called, so the collectives of each group must come in the same order on
+every rank.  The thread that runs the program keeps the mesh's own
+groups.  Jobs that a thread pool runs at once (the Paillier noise
+prefetch, the protocol legs, one party's deliveries) each run in a lane
+(`in_lane(key, fn, ...)`, a context variable set for the job's
+duration), and a lane has groups of its own: `open_lanes` creates them
+up front, in one fixed order on every rank (`new_group` is itself a
+collective), and `axis_group` picks the lane's group of a mesh axis.
+Within a lane one job runs at a time, so its collectives come in
+program order.
 """
 from __future__ import annotations
 
 import collections
+import contextvars
 import dataclasses
+import datetime
+import threading
 import time
 
 import torch
@@ -46,24 +60,83 @@ class CollectiveStats:
         default_factory=collections.Counter)
     bytes: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
 
     def reset(self) -> None:
-        self.calls.clear()
-        self.seconds.clear()
-        self.bytes.clear()
+        with self._lock:
+            self.calls.clear()
+            self.seconds.clear()
+            self.bytes.clear()
 
     def add(self, kind: str, t0: float, nbytes: int) -> None:
-        self.calls[kind] += 1
-        self.seconds[kind] += time.perf_counter() - t0
-        self.bytes[kind] += nbytes
+        with self._lock:
+            self.calls[kind] += 1
+            self.seconds[kind] += time.perf_counter() - t0
+            self.bytes[kind] += nbytes
 
 
 stats = CollectiveStats()
 
 
+#: the lane of the running job; None on the thread that runs the program
+_LANE: contextvars.ContextVar = contextvars.ContextVar("secure_ops_lane",
+                                                       default=None)
+#: (id(mesh), axis) -> (mesh, {lane key: this rank's group of the axis})
+_LANE_GROUPS: dict = {}
+#: the time limit of the lanes' collectives (`launch.mesh.run_world` sets
+#: its world's; None: torch's default)
+lane_timeout: datetime.timedelta | None = None
+
+
+def in_lane(key, fn, *args, **kwargs):
+    """fn(*args, **kwargs) with its collectives in lane `key` (None: the
+    mesh's own groups): the form a pool job takes."""
+    token = _LANE.set(key)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        _LANE.reset(token)
+
+
+def _axis_ranks(mesh, axis: str) -> list[list[int]]:
+    """The global ranks of every group of `mesh`'s dim `axis` (None: the
+    world, one group)."""
+    if mesh is None:
+        return [list(range(dist.get_world_size()))]
+    ranks = mesh.mesh
+    dim = mesh.mesh_dim_names.index(axis)
+    return ranks.movedim(dim, -1).reshape(-1, ranks.shape[dim]).tolist()
+
+
+def open_lanes(mesh=None, axis: str = "data", keys=()) -> None:
+    """Create the groups of lanes `keys` over `mesh`'s dim `axis` (a
+    `DeviceMesh`, or None: the world).  Every rank must call this with
+    the same keys in the same order; lanes already open are kept."""
+    me = dist.get_rank()
+    lanes = _LANE_GROUPS.setdefault((id(mesh), axis), (mesh, {}))[1]
+    for key in keys:
+        if key in lanes:
+            continue
+        for ranks in _axis_ranks(mesh, axis):
+            group = dist.new_group(ranks, timeout=lane_timeout)
+            if me in ranks:
+                lanes[key] = group
+
+
 def axis_group(mesh_or_group=None, axis: str = "data"):
-    """The process group of a `DeviceMesh`'s dim `axis`, or the group
-    given (None: the default world)."""
+    """The process group of a `DeviceMesh`'s dim `axis` (None: the
+    default world) in the running job's lane, or the group given."""
+    is_mesh = mesh_or_group is None or hasattr(mesh_or_group, "get_group")
+    key = _LANE.get()
+    if key is not None and is_mesh:
+        lanes = _LANE_GROUPS.get((id(mesh_or_group), axis), (None, {}))[1]
+        if key not in lanes:
+            raise RuntimeError(
+                f"lane {key!r} of mesh axis {axis!r} is not open: every "
+                "lane a pool job runs in needs its groups (open_lanes), "
+                "created in the same order on every rank")
+        return lanes[key]
     if hasattr(mesh_or_group, "get_group"):
         return mesh_or_group.get_group(axis)
     return dist.group.WORLD if mesh_or_group is None else mesh_or_group

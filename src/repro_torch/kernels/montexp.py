@@ -323,7 +323,8 @@ def rns_fixed_base_tiled(table: torch.Tensor, digits: torch.Tensor,
     (levels, 2^window, CH) states); digits (batch, levels) int32
     LSB-first → (batch, CH) int32 states of h^e·R (the walk, the fold of
     its level segments and the exit round).  `shape` defaults to
-    `fixed_base_shape` for this device."""
+    `fixed_base_shape` for this device.  Each launch also counts its
+    (batch, CH, levels, window) in `.shapes`."""
     levels = table.shape[0]
     if table.dim() != 3 or table.shape[1] != 1 << window \
             or digits.dim() != 2 or digits.shape[1] != levels:
@@ -355,7 +356,8 @@ def rns_fixed_base_tiled(table: torch.Tensor, digits: torch.Tensor,
              *launch_args(ctx, table.device),
              torch.cuda.current_stream(table.device).cuda_stream)
     build.check(err, "rns_fixed_base")
-    build.count_launch(rns_fixed_base_tiled)
+    build.count_launch(rns_fixed_base_tiled,
+                       (batch, ctx.CH, levels, window))
     return out
 
 
@@ -428,5 +430,6 @@ rns_mont_exp_tiled.shapes = collections.Counter()
 rns_he_matvec_tiled.launches = 0
 rns_he_matvec_tiled.shapes = collections.Counter()
 rns_fixed_base_tiled.launches = 0
+rns_fixed_base_tiled.shapes = collections.Counter()
 mont_exp_tiled.launches = 0
 he_matvec_tiled.launches = 0

@@ -57,7 +57,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.comm import CommMeter
-from repro_torch.crypto import engine as engine_mod
 from repro_torch.distributed import compression as comp_lib
 from repro_torch.runtime import chaos as chaos_lib
 from repro_torch.runtime import messages as msg
@@ -135,11 +134,6 @@ class SocketCluster:
         if parties[0].name != "C":
             raise ValueError("parties[0] must be C")
         validate_key_bits(cfg, mask_bound_bits(cfg))   # fail before spawning
-        if engine_mod.get_engine().sharded:
-            raise ValueError(
-                "the process-default crypto engine is sharded, but a socket "
-                "party is a process of its own with no process group: it "
-                "would run unsharded; reset the default (set_engine(None))")
         self.parties = list(parties)
         self.names = [p.name for p in parties]
         self.y = np.asarray(y, np.float64)
@@ -388,7 +382,8 @@ class SocketCluster:
                  ) -> dict[str, msg.Control]:
         """One control frame of `kind` from every party, failures
         attributed to a party (`ClusterError.party`) where the conductor
-        can tell which one."""
+        can tell which one.  A party's link that closes after its `bye`
+        is no failure: it leaves right after sending it."""
         got: dict[str, msg.Control] = {}
         if timeout is None:
             timeout = self.policy.deadline_for(kind)
@@ -409,6 +404,8 @@ class SocketCluster:
                 raise ClusterError(
                     f"conductor received protocol frame {m.tag!r} — "
                     "parties must never route data through the conductor")
+            if m.kind == "__closed__" and kind == "bye" and m.src in got:
+                continue        # a party leaves right after its bye
             if m.kind in ("error", "__closed__"):
                 raise self._failure(m)
             if m.kind != kind:

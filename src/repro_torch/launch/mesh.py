@@ -5,7 +5,9 @@ The reference builds jax meshes over devices one controller sees; here
 every rank is its own process, so a mesh is a `DeviceMesh` that each rank
 builds over the world it joined (`init_device_mesh`, a collective call).
 Each mesh comes from a function, never a module constant, and a world
-of the wrong size is refused.
+of the wrong size is refused.  Meshes default to ``device_type="cuda"``,
+as every entry point of the port runs on the card unless asked for the
+CPU.
 
 `run_world(fn, world_size, device)` is the port's counterpart of the
 reference's ``--xla_force_host_platform_device_count``: it spawns
@@ -39,7 +41,7 @@ def _require_world() -> None:
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
-              device_type: str = "cpu"):
+              device_type: str = "cuda"):
     """A `DeviceMesh` of `shape` with dims named `axes` over the running
     world, which must hold exactly prod(shape) ranks."""
     _require_world()
@@ -55,7 +57,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
-def make_data_mesh(device_type: str = "cpu", axis: str = "data"):
+def make_data_mesh(device_type: str = "cuda", axis: str = "data"):
     """A one-dim mesh over the whole world: the ciphertext-batch mesh of
     `distributed.he_sharding.ShardedCryptoEngine`."""
     _require_world()
@@ -72,7 +74,7 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 def make_debug_mesh(n_data: int = 2, n_model: int = 4,
-                    multi_pod: bool = False, device_type: str = "cpu"):
+                    multi_pod: bool = False, device_type: str = "cuda"):
     """The reference's small mesh for smoke tests (8 ranks by default)."""
     if multi_pod:
         return make_mesh((2, n_data, n_model), ("pod", "data", "model"),
@@ -92,10 +94,12 @@ def _rank_main(rank: int, world_size: int, init_method: str, device: str,
     try:
         if torch.device(device).type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
+        timeout = datetime.timedelta(seconds=collective_timeout_s)
         dist.init_process_group(
             "gloo", init_method=init_method, rank=rank,
-            world_size=world_size,
-            timeout=datetime.timedelta(seconds=collective_timeout_s))
+            world_size=world_size, timeout=timeout)
+        from repro_torch.distributed import secure_ops
+        secure_ops.lane_timeout = timeout         # the lanes' groups too
         out = fn(*args)
     except BaseException as e:                     # reported, never lost
         failed_at = time.time()
@@ -110,7 +114,7 @@ def _rank_main(rank: int, world_size: int, init_method: str, device: str,
     results.put((rank, True, out, None))
 
 
-def run_world(fn: Callable[..., Any], world_size: int, device: str = "cpu",
+def run_world(fn: Callable[..., Any], world_size: int, device: str = "cuda",
               args: tuple = (), *, timeout_s: float = 300.0,
               collective_timeout_s: float = 120.0) -> list:
     """Run `fn(*args)` on `world_size` spawned ranks of a gloo world and
@@ -118,8 +122,11 @@ def run_world(fn: Callable[..., Any], world_size: int, device: str = "cpu",
 
     `fn` must be importable by the children (a module-level function).
     Each rank sets its CUDA device first when `device` is a CUDA device
-    (rank mod the cards). `collective_timeout_s` bounds joining the
-    world and every collective; `timeout_s` the whole run.  The first
+    (rank mod the cards); the default is the card, as for every entry
+    point of the port, and the tests pass ``"cpu"``.
+    `collective_timeout_s` bounds joining the world and every collective
+    (the lanes' groups of `distributed.secure_ops` included);
+    `timeout_s` the whole run.  The first
     rank to fail (by the wall clock: a failure makes its peers fail on
     the connections it closes) has its exception re-raised here, its
     traceback as a note; a rank that dies without reporting, or a run

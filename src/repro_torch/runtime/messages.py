@@ -155,10 +155,23 @@ class WxShare(RingMessage):
     tag = "infer.wx_share"
 
 
+def _meta_limbs(*shape: int):
+    import torch
+    return torch.empty(shape, dtype=torch.int64, device="meta")
+
+
 class EncD(CipherMessage):
     """Protocol 3 line 1 — [[⟨d⟩]] (nb ciphertexts under the sender's
     own key), CP ↔ CP exchange."""
     tag = "P3.enc_d"
+
+    @staticmethod
+    def mesh_payload_spec(n_parties: int, n_cts: int, limbs: int):
+        """Shape-only tensor of the pod-major [[⟨d⟩]] payload of the
+        protocol step on a pod × data × model mesh (pod = party): one
+        Z_{n²} ciphertext per batch sample, `limbs` 12-bit limbs in the
+        port's int64 limb dtype, on the ``meta`` device."""
+        return _meta_limbs(n_parties, n_cts, limbs)
 
 
 class EncDBroadcast(CipherMessage):
@@ -172,6 +185,12 @@ class MaskedGrad(CipherMessage):
     """Protocol 3 lines 5–6 — the masked encrypted gradient (m_p
     ciphertexts under `key_owner`'s key), feature owner → key owner."""
     tag = "P3.masked_grad"
+
+    @staticmethod
+    def mesh_payload_spec(n_parties: int, n_features: int, limbs: int):
+        """Shape-only tensor of the pod-major masked-gradient payload:
+        (n_parties, n_features, limbs) int64 limbs on ``meta``."""
+        return _meta_limbs(n_parties, n_features, limbs)
 
 
 @dataclasses.dataclass

@@ -86,7 +86,7 @@ from repro_torch.runtime import messages as msg
 from repro_torch.runtime import seeds as seeds_lib
 from repro_torch.runtime import session as session_lib
 from repro_torch.runtime.chaos import ChaosProfile, FaultyTransport
-from repro_torch.runtime.dispatch import DispatchCore
+from repro_torch.runtime.dispatch import DispatchCore, PeerLost
 from repro_torch.runtime.party import DataParty, LabelParty
 from repro_torch.runtime.policy import RetryPolicy
 from repro_torch.runtime.scheduler import (mask_bound_bits, resolve_device,
@@ -345,9 +345,35 @@ class PartyServer:
     def _next_ctrl(self, expect: str | None = None) -> msg.Control:
         return self.core.next_ctrl(expect)
 
+    def _idle_ctrl(self) -> msg.Control:
+        """The next request, waited for between requests.  A peer's link
+        that closes here is held until that request comes: the parties
+        leave one after another on `shutdown` (each closes its links on
+        the way out), so a party still waiting for its own `shutdown` can
+        see a peer's close first.  A `shutdown` then ends the run as it
+        would have; any other request, or the wait's time limit, raises
+        the held `PeerLost` (attributed to that peer).  The conductor's
+        link closing still raises at once."""
+        lost = None
+        while True:
+            try:
+                c = self._next_ctrl()
+            except PeerLost as e:
+                if e.peer == CONDUCTOR:
+                    raise
+                lost = lost or e
+                continue
+            except TimeoutError:
+                if lost is not None:
+                    raise lost from None
+                raise
+            if lost is not None and c.kind != "shutdown":
+                raise lost
+            return c
+
     def _main_loop(self) -> None:
         while True:
-            c = self._next_ctrl()
+            c = self._idle_ctrl()
             if c.kind == "iter":
                 self._run_iteration(int(c.payload["it"]),
                                     tuple(c.payload["cps"]))

@@ -88,22 +88,6 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
-def refuse_sharded_pool(backend, transport) -> None:
-    """A sharded crypto engine calls a collective in every batched op,
-    and collectives must come in the same order on every rank; a
-    transport's thread pool (the noise prefetch, the legs' fan-out)
-    calls ops from several threads in an order that differs between
-    ranks, so the pair is refused rather than left to hang."""
-    engine = getattr(backend, "engine", None)
-    if transport.executor is not None and engine is not None \
-            and engine.sharded:
-        raise ValueError(
-            "a sharded crypto engine cannot run under a transport with a "
-            "thread pool (PipelinedTransport): its collectives must be "
-            "called in the same order on every rank, and the pool calls "
-            "them from several threads; use LocalTransport")
-
-
 class VFLScheduler:
     """Drives Algorithm 1 over Party actors.
 
@@ -138,7 +122,6 @@ class VFLScheduler:
         if backend is None:
             # consumes the protocol stream's first k draws as key seeds
             backend = trainer_lib.make_backend(cfg, self.names, self.rng)
-        refuse_sharded_pool(backend, self.transport)
         self.backend = backend
         self.dealer = beaver.DealerTripleSource(
             seed=seeds.dealer_seed(cfg.seed), device=self.device)
@@ -157,6 +140,14 @@ class VFLScheduler:
         ex = self.transport.executor
         if ex is not None and hasattr(self.backend, "attach_noise_executor"):
             self.backend.attach_noise_executor(ex)
+        engine = getattr(self.backend, "engine", None)
+        if ex is not None and engine is not None and engine.sharded:
+            # every rank pairs the pool's collectives by lane: a lane for
+            # each prefetch of an iteration and each thunk of the widest
+            # fan-out (Protocol 1's k + 1 shares)
+            self.transport.open_lanes(
+                engine, noise=len(self._noise_plan(self.names[:2], 1)),
+                legs=len(self.parties) + 1)
         self._live_state: TrainState | None = None
 
     @property
@@ -175,26 +166,37 @@ class VFLScheduler:
         order and the CPs' order-sensitive ez chaining) does not depend
         on the schedule."""
         if self._concurrent():
-            futs = [self.transport.executor.submit(t) for t in thunks]
-            return [f.result() for f in futs]
+            return self.transport.run_all("legs", thunks)
         return [t() for t in thunks]
 
-    def _prefetch_noise(self, cps: tuple[str, str], nb: int) -> None:
-        """Schedule this iteration's encryption noise on the transport's
-        pool before Protocol 1: [[⟨d⟩]] under each CP's own key, and each
-        leg's mask encryptions.  The raw draws stay on this thread."""
-        be = self.backend
-        if not hasattr(be, "prefetch_noise"):
-            return
-        for cp in cps:
-            be.prefetch_noise(cp, nb)
+    def _noise_plan(self, cps, nb: int) -> list[tuple[str, int]]:
+        """An iteration's encryption noise batches, (key owner, count) in
+        prefetch order: [[⟨d⟩]] under each CP's own key, then each leg's
+        mask encryptions (under the other CP's key for a CP, under both
+        for a non-CP)."""
+        plan = [(cp, nb) for cp in cps]
         for p in self.parties:
             m = p.X.shape[1]
             if p.name in cps:
-                be.prefetch_noise(cps[1] if p.name == cps[0] else cps[0], m)
+                plan.append((cps[1] if p.name == cps[0] else cps[0], m))
             else:
-                for cp in cps:
-                    be.prefetch_noise(cp, m)
+                plan += [(cp, m) for cp in cps]
+        return plan
+
+    def _prefetch_noise(self, cps: tuple[str, str], nb: int) -> None:
+        """Schedule this iteration's encryption noise (`_noise_plan`) on
+        the transport's pool before Protocol 1.  The raw draws stay on
+        this thread."""
+        if hasattr(self.backend, "prefetch_noise"):
+            for party, count in self._noise_plan(cps, nb):
+                self.backend.prefetch_noise(party, count)
+
+    def _discard_noise(self) -> None:
+        """Drop the unconsumed prefetches once they have ended (bounds the
+        pool to one iteration) and free their lanes."""
+        if hasattr(self.backend, "discard_pooled_noise"):
+            self.backend.discard_pooled_noise()
+            self.transport.free_lanes("noise")
 
     # -- one iteration ------------------------------------------------------
     def _select_cps(self) -> tuple[str, str]:
@@ -278,8 +280,7 @@ class VFLScheduler:
         # -- stop flag ------------------------------------------------------
         tp.post_all(self.label_party.emit_flags(self.names[1:]))
         tp.pump()
-        if hasattr(self.backend, "discard_pooled_noise"):
-            self.backend.discard_pooled_noise()    # bound the pool to one iter
+        self._discard_noise()
 
     # -- step-state machine -------------------------------------------------
     def init_state(self) -> TrainState:
@@ -325,9 +326,7 @@ class VFLScheduler:
         if state.select_rng is not None and self.select_rng is not self.rng:
             self.select_rng.set_state(state.select_rng)
         self.dealer.set_state(state.dealer)
-        if hasattr(self.backend, "discard_pooled_noise"):
-            # scratch: a resumed iteration prefetches its own batches
-            self.backend.discard_pooled_noise()
+        self._discard_noise()    # a resumed iteration prefetches its own
         self.transport.meter = rebuild_meter(state.meter_sends)
         self.transport.rounds = int(state.rounds)
         self._live_state = state

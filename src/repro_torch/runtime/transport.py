@@ -19,7 +19,12 @@ so `rounds` counts the protocol's communication rounds.
   before Protocol 4).  Masks are drawn behind a lock and cancel
   exactly, so the trained model is bit-identical to LocalTransport
   under fixed CP selection; CP selection draws from a dedicated stream
-  so the trajectory does not depend on thread interleaving.
+  so the trajectory does not depend on thread interleaving.  Under a
+  sharded crypto engine the transport runs in lanes (`open_lanes`):
+  every pool job runs in a lane of its own with its own process groups
+  and a protocol generator of its own, both fixed at submission, so
+  every rank of the engine's world pairs the same collectives and draws
+  the same masks.
 
 * `SocketTransport` — the real wire between party processes: every
   posted envelope is encoded by the binary codec (`runtime.codec`) and
@@ -39,6 +44,8 @@ caching allocator's reuse of a freed block, so no event or
 from __future__ import annotations
 
 import collections
+import contextvars
+import functools
 import queue as _queue
 import socket as _socket
 import threading
@@ -47,6 +54,7 @@ from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 import numpy as np
 
 from repro_torch.core.comm import CommMeter
+from repro_torch.distributed import secure_ops
 from repro_torch.runtime import messages as msg_lib
 from repro_torch.runtime import seeds
 from repro_torch.runtime.codec import (PRELUDE, CodecError,
@@ -54,15 +62,26 @@ from repro_torch.runtime.codec import (PRELUDE, CodecError,
 from repro_torch.runtime.messages import Message
 
 
+#: the protocol generator of the running pool job in lane mode (None:
+#: the shared stream)
+_JOB_RNG: contextvars.ContextVar = contextvars.ContextVar("job_rng",
+                                                          default=None)
+
+
 class LockedRNG:
     """Thread-safe proxy over a np.random.Generator: every method call is
-    serialized, so concurrent handlers can share one entropy source."""
+    serialized, so concurrent handlers can share one entropy source.  A
+    pool job of a transport in lane mode draws from its own generator
+    instead (`PipelinedTransport.submit`)."""
 
     def __init__(self, rng: np.random.Generator):
         self._rng = rng
         self._lock = threading.Lock()
 
     def __getattr__(self, name):
+        job = _JOB_RNG.get()
+        if job is not None:
+            return getattr(job, name)
         attr = getattr(self._rng, name)
         if not callable(attr):
             return attr
@@ -163,10 +182,32 @@ class Transport:
         for name, count in snapshot:
             self.post_all(self._deliver_one(name, count))
 
+    def free_lanes(self, kind: str) -> None:
+        """Hook: every pool job of `kind` has ended (lane mode)."""
+
 
 class LocalTransport(Transport):
     """Sequential in-process delivery (the bit-exact replay); no
     executor, so the scheduler runs every protocol leg inline."""
+
+
+def _lane_job(key, rng, fn, args):
+    token = _JOB_RNG.set(rng)
+    try:
+        return secure_ops.in_lane(key, fn, *args)
+    finally:
+        _JOB_RNG.reset(token)
+
+
+class _LaneExecutor:
+    """An executor's `submit` over a transport's pool, every job in the
+    next lane of one kind (`PipelinedTransport.submit`)."""
+
+    def __init__(self, transport, kind: str):
+        self._transport, self._kind = transport, kind
+
+    def submit(self, fn, *args):
+        return self._transport.submit(fn, *args, kind=self._kind)
 
 
 class PipelinedTransport(Transport):
@@ -176,9 +217,12 @@ class PipelinedTransport(Transport):
     Args:
       meter: byte accounting sink (fresh `CommMeter` if None).
       max_workers: thread-pool size (default 8).
-      concurrent_legs: let the scheduler drain Protocol 3 with
-        `pump_async` (False: barrier sweeps; the model is bit-identical
-        either way).
+      concurrent_legs: let the scheduler run independent legs as pool
+        jobs (its fan-outs) and drain Protocol 3 with `pump_async`
+        (False: inline legs and barrier sweeps; the model is
+        bit-identical either way).  In lane mode (a sharded engine)
+        `pump_async` drains by sweeps, so the flag covers the fan-outs
+        only.
     """
 
     overlaps_p3 = True
@@ -189,26 +233,79 @@ class PipelinedTransport(Transport):
         super().__init__(meter)
         self._pool = ThreadPoolExecutor(max_workers=max_workers or 8)
         self.concurrent_legs = concurrent_legs
+        self._rng: LockedRNG | None = None
+        self._noise = _LaneExecutor(self, "noise")
+        #: lane mode (`open_lanes`): the next lane of each kind
+        self._next_lane: dict[str, int] | None = None
 
     @property
     def executor(self):
-        """The sweep pool doubles as the noise-prefetch executor."""
-        return self._pool
+        """The noise-prefetch executor: jobs on the sweep pool, each in
+        the next ``noise`` lane in lane mode."""
+        return self._noise
+
+    @property
+    def lanes(self) -> bool:
+        """Whether the pool runs in lanes (a sharded engine's)."""
+        return self._next_lane is not None
 
     def wrap_rng(self, rng):
-        return LockedRNG(rng)
+        self._rng = LockedRNG(rng)
+        return self._rng
 
     def cp_select_rng(self, shared_rng, seed: int):
         return seeds.cp_select_rng(seed)
+
+    def open_lanes(self, engine, **widths: int) -> None:
+        """Lane mode, for a sharded crypto engine: open the groups of
+        lanes ``kind/0`` .. ``kind/(n - 1)`` for each `kind=n` of
+        `widths` (the most jobs of that kind that can run at once; the
+        caller's counts) and ``party/i`` for each bound party (a sweep's
+        deliveries), over the engine's mesh axis, the same calls on
+        every rank.  Jobs of one kind run beside those of another, and a
+        lane's next job starts after its last one ended."""
+        widths["party"] = len(self._parties)
+        secure_ops.open_lanes(
+            engine.mesh, engine.mesh_axis,
+            [f"{kind}/{i}" for kind, n in widths.items() for i in range(n)])
+        self._next_lane = dict.fromkeys(widths, 0)
+
+    def submit(self, fn, *args, kind: str):
+        """fn(*args) as a pool future.  In lane mode it runs in the next
+        lane of `kind` (numbered in submission order, on the program's
+        thread, until `free_lanes`) with a protocol generator of its own,
+        seeded now from the shared stream: the same lane and draw on
+        every rank, where the shared stream's interleaving across pool
+        threads would differ."""
+        if self._next_lane is None:
+            return self._pool.submit(fn, *args)
+        lane = f"{kind}/{self._next_lane[kind]}"
+        self._next_lane[kind] += 1
+        seed = int.from_bytes(self._rng.bytes(16), "little")
+        rng = np.random.Generator(np.random.PCG64(seed))
+        return self._pool.submit(_lane_job, lane, rng, fn, args)
+
+    def free_lanes(self, kind: str) -> None:
+        """Every job of `kind` has ended: number its lanes from 0 again."""
+        if self._next_lane is not None:
+            self._next_lane[kind] = 0
+
+    def run_all(self, kind: str, thunks) -> list:
+        """The thunks as concurrent pool jobs of `kind`; their results in
+        thunk order."""
+        futs = [self.submit(t, kind=kind) for t in thunks]
+        out = [f.result() for f in futs]
+        self.free_lanes(kind)
+        return out
 
     def _sweep(self, snapshot) -> None:
         if len(snapshot) <= 1:
             super()._sweep(snapshot)
             return
-        futs = [self._pool.submit(self._deliver_one, name, count)
-                for name, count in snapshot]
-        for f in futs:
-            self.post_all(f.result())
+        for out in self.run_all("party", [
+                functools.partial(self._deliver_one, name, count)
+                for name, count in snapshot]):
+            self.post_all(out)
 
     # -- per-message concurrent delivery ------------------------------------
     def _handle_locked(self, m: Message) -> list[Message]:
@@ -226,7 +323,18 @@ class PipelinedTransport(Transport):
         `rounds` grows by the longest message dependency chain, what
         `pump` counts for the same traffic.  Delivery order is not
         deterministic, so callers drain only order-insensitive phases
-        (Protocol 3's ring-share accumulations commute exactly)."""
+        (Protocol 3's ring-share accumulations commute exactly).
+
+        In lane mode the drain is by sweeps (`pump`): each party's
+        messages of a generation in one job, the parties concurrently.
+        Per-message futures take a party's lock in an order that differs
+        between ranks, and a handler holds that lock through its
+        collectives: two ranks can each wait in one lane for a handler
+        the other's lock holds back.  The rounds are the same, since
+        `pump_async` counts the longest chain and `pump` its sweeps."""
+        if self.lanes:
+            self.pump(order)
+            return
         seed: list[Message] = []
         names = list(order or [])
         names += [n for n in self._parties if n not in names]

@@ -14,9 +14,15 @@ forced-host mesh (built with Auto axes, in a subprocess).
 product, `secure_allreduce_shares` the Z_2^64 sum (and, mod 2^32, the
 reference's psum of the low words).  One sharded `train_vfl` (world 2)
 must equal the reference's Paillier `train_vfl` on losses, weights,
-bytes by tag and rounds.  Both reference runs go in subprocesses started
-first, beside the port's worlds.  Every world and subprocess has a time
-limit, so a mismatched collective fails a test instead of hanging."""
+bytes by tag and rounds.  Under `PipelinedTransport` (its pool's jobs in
+lanes), sharded runs in worlds of 2 and 4 at k = 2 and 3, with and
+without concurrent legs and under a short switch interval, must equal
+the reference's pipelined runs with its `ShardedCryptoEngine` and call
+the collectives of the port's local sharded runs.  A `SocketCluster`
+beside a sharded process default must equal the local run.  The
+reference runs go in subprocesses started first, beside the port's
+worlds.  Every world and subprocess has a time limit, so a mismatched
+collective fails a test instead of hanging."""
 import os
 import subprocess
 import sys
@@ -33,7 +39,6 @@ from repro_torch.crypto import paillier as tpai
 from repro_torch.crypto.bigint import Modulus
 from repro_torch.distributed import he_sharding, secure_ops
 from repro_torch.launch import mesh as tmesh
-from repro_torch.runtime.scheduler import VFLScheduler
 from repro_torch.runtime.transport import PipelinedTransport
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,6 +131,54 @@ print("REF_TRAIN_OK")
 """
 
 
+# the reference's pipelined Paillier train_vfl with its ShardedCryptoEngine
+# on a 4-device Auto-axis mesh, k = 2 and 3, both leg schedules
+REF_PIPE = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, numpy as np
+from jax.sharding import AxisType
+from repro.core import protocols, trainer
+from repro.crypto import paillier
+from repro.data import synthetic, vertical
+from repro.distributed.he_sharding import ShardedCryptoEngine
+from repro.runtime import PipelinedTransport
+mesh = jax.make_mesh((4,), ("data",), devices=jax.devices()[:4],
+                     axis_types=(AxisType.Auto,))
+out = {}
+for k in (2, 3):
+    names = ["C"] + [f"B{i}" for i in range(1, k)]
+    X, y = synthetic.credit_default(n=40, d=4, seed=3)
+    parties = [trainer.PartyData(name=nm, X=p)
+               for nm, p in zip(names, vertical.split_columns(X, k))]
+    for legs in (True, False):
+        cfg = trainer.VFLConfig(glm="logistic", lr=0.1, max_iter=1,
+                                batch_size=16, he_backend="paillier",
+                                key_bits=192, tol=0.0, seed=2)
+        rng = np.random.default_rng(cfg.seed + 90001)
+        keys = {p: paillier.keygen(cfg.key_bits,
+                                   seed=int(rng.integers(2**31)))
+                for p in names}
+        res = trainer.train_vfl(
+            parties, y, cfg,
+            backend=protocols.PaillierBackend(
+                keys, rng, ShardedCryptoEngine(backend="jnp", mesh=mesh)),
+            transport=PipelinedTransport(max_workers=2,
+                                         concurrent_legs=legs))
+        tag = f"{k}/{int(legs)}"
+        tags = sorted(res.meter.by_tag)
+        out[tag + "/losses"] = np.asarray(res.losses, np.float64)
+        out[tag + "/rounds"] = np.asarray(res.rounds)
+        out[tag + "/tags"] = np.asarray(tags)
+        out[tag + "/tag_bytes"] = np.asarray([res.meter.by_tag[t]
+                                              for t in tags])
+        for n, w in res.weights.items():
+            out[tag + "/w_" + n] = np.asarray(w)
+np.savez(sys.argv[1], **out)
+print("REF_PIPE_OK")
+"""
+
+
 def _inputs() -> dict:
     """The seeded inputs of every check, host numpy."""
     rng = np.random.default_rng(0)
@@ -211,26 +264,27 @@ def _rank_checks(inp: dict) -> dict:
     refusals = []
     for build in (tmesh.make_debug_mesh, tmesh.make_production_mesh):
         try:
-            build()
+            build(device_type="cpu")
         except ValueError as e:
             refusals.append(str(e))
     return {"out": out, "calls": calls, "refusals": refusals}
 
 
-def _train_backend(engine, device="cpu"):
+def _train_backend(engine, names=("C", "B1"), device="cpu"):
     """The reference slow test's backend: keys from the first draws of
     default_rng(seed + 90001), which then carries the noise."""
     rng = np.random.default_rng(2 + 90001)
     keys = {p: tpai.keygen(192, seed=int(rng.integers(2**31)))
-            for p in ["C", "B1"]}
+            for p in names}
     return tprot.PaillierBackend(keys, rng, engine, device=device)
 
 
-def _train_parties():
+def _train_parties(k: int = 2):
     from repro_torch.data import synthetic, vertical
     X, y = synthetic.credit_default(n=40, d=4, seed=3)
+    names = ["C"] + [f"B{i}" for i in range(1, k)]
     return [ttrainer.PartyData(name=nm, X=p) for nm, p in
-            zip(["C", "B1"], vertical.split_columns(X, 2))], y
+            zip(names, vertical.split_columns(X, k))], y
 
 
 def _train_cfg():
@@ -239,15 +293,50 @@ def _train_cfg():
                               key_bits=192, tol=0.0, seed=2, device="cpu")
 
 
-def _rank_train() -> dict:
+#: the trainings of a world: the local sharded run, and the pipelined
+#: sharded runs with concurrent legs and with barrier sweeps
+TRAIN_MODES = ("local", "legs", "sweeps")
+PIPE_KS = (2, 3)
+
+
+def _rank_trains() -> dict:
+    """Every training of one world, in that world (the start-up paid
+    once): for k = 2 and 3, the local sharded run and the two pipelined
+    sharded runs, these under a short switch interval so that the pool
+    threads' orders really differ between ranks.  k = 2 with concurrent
+    legs also runs with the sharded engine as the process default."""
     mesh = tmesh.make_data_mesh("cpu")
-    parties, y = _train_parties()
-    secure_ops.stats.reset()
-    res = ttrainer.train_vfl(parties, y, _train_cfg(), backend=_train_backend(
-        he_sharding.ShardedCryptoEngine(mesh=mesh)))
-    return {"losses": res.losses, "rounds": res.rounds,
-            "by_tag": dict(res.meter.by_tag), "weights": res.weights,
-            "calls": dict(secure_ops.stats.calls)}
+    out = {}
+    for k in PIPE_KS:
+        parties, y = _train_parties(k)
+        names = [p.name for p in parties]
+        for mode in TRAIN_MODES + (("default",) if k == 2 else ()):
+            eng = he_sharding.ShardedCryptoEngine(mesh=mesh)
+            transport = None if mode == "local" else PipelinedTransport(
+                max_workers=2, concurrent_legs=mode != "sweeps")
+            secure_ops.stats.reset()
+            old = sys.getswitchinterval()
+            if transport is not None:
+                sys.setswitchinterval(1e-5)
+            try:
+                if mode == "default":
+                    with tengine.use_engine(eng):
+                        res = ttrainer.train_vfl(
+                            parties, y, _train_cfg(),
+                            backend=_train_backend(None, names),
+                            transport=transport)
+                else:
+                    res = ttrainer.train_vfl(
+                        parties, y, _train_cfg(),
+                        backend=_train_backend(eng, names),
+                        transport=transport)
+            finally:
+                sys.setswitchinterval(old)
+            out[(k, mode)] = {
+                "losses": res.losses, "rounds": res.rounds,
+                "by_tag": dict(res.meter.by_tag), "weights": res.weights,
+                "calls": dict(secure_ops.stats.calls)}
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -265,15 +354,20 @@ def runs(tmp_path_factory):
         "train": subprocess.Popen(
             [sys.executable, "-c", REF_TRAIN, str(d / "train.npz")],
             env=ENV, cwd=REPO, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE),
+        "pipe": subprocess.Popen(
+            [sys.executable, "-c", REF_PIPE, str(d / "pipe.npz")],
+            env=ENV, cwd=REPO, text=True, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE)}
     try:
         worlds = {w: tmesh.run_world(_rank_checks, w, "cpu", (inp,),
                                      timeout_s=TIMEOUT_S,
                                      collective_timeout_s=60)
                   for w in WORLDS}
-        train = tmesh.run_world(_rank_train, 2, "cpu",
-                                timeout_s=TIMEOUT_S,
-                                collective_timeout_s=60)
+        trains = {w: tmesh.run_world(_rank_trains, w, "cpu",
+                                     timeout_s=TIMEOUT_S,
+                                     collective_timeout_s=60)
+                  for w in WORLDS}
         single, ops_called = _counted_single(inp)
         ref = {}
         for name, p in procs.items():
@@ -286,9 +380,10 @@ def runs(tmp_path_factory):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    return dict(inp=inp, worlds=worlds, train=train, single=single,
+    return dict(inp=inp, worlds=worlds, trains=trains,
+                train=[r[(2, "local")] for r in trains[2]], single=single,
                 ops_called=ops_called, ref=ref["ops"],
-                ref_train=ref["train"])
+                ref_train=ref["train"], ref_pipe=ref["pipe"])
 
 
 def _counted_single(inp: dict):
@@ -422,33 +517,94 @@ class _TwoRankMesh:
     shape = (2,)
 
 
+def _assert_same_training(got: dict, want: dict, rounds: bool = True):
+    assert got["losses"] == want["losses"]
+    assert got["by_tag"] == want["by_tag"]
+    if rounds:
+        assert got["rounds"] == want["rounds"]
+    assert set(got["weights"]) == set(want["weights"])
+    for name, w in want["weights"].items():
+        np.testing.assert_array_equal(got["weights"][name], w)
+
+
+def _ref_pipe(runs, k: int, legs: bool) -> dict:
+    ref, tag = runs["ref_pipe"], f"{k}/{int(legs)}"
+    tags = ref[tag + "/tags"].tolist()
+    return {"losses": ref[tag + "/losses"].tolist(),
+            "rounds": int(ref[tag + "/rounds"]),
+            "by_tag": dict(zip(tags, ref[tag + "/tag_bytes"].tolist())),
+            "weights": {n: ref[f"{tag}/w_{n}"] for n in
+                        ["C"] + [f"B{i}" for i in range(1, k)]}}
+
+
 @pytest.mark.parametrize("concurrent_legs", [True, False])
-def test_sharded_engine_refused_under_pipelined_transport(concurrent_legs):
-    """The pool's noise prefetch and fan-out would call collectives from
-    several threads, in an order that differs between ranks: refused at
-    construction, before any collective, instead of hanging."""
+def test_sharded_engine_refused_under_pipelined_transport(runs,
+                                                          concurrent_legs):
+    """A sharded engine under `PipelinedTransport` is accepted: it trains
+    in lanes.  In worlds of 2 and 4 ranks, at k = 2 and 3, every
+    rank's run equals the reference's pipelined Paillier run with its
+    `ShardedCryptoEngine` (losses, weights, bytes by tag, rounds) and
+    the port's local sharded run (losses, weights, bytes by tag)."""
+    mode = "legs" if concurrent_legs else "sweeps"
+    for world in WORLDS:
+        for k in PIPE_KS:
+            want = _ref_pipe(runs, k, concurrent_legs)
+            for r in runs["trains"][world]:
+                _assert_same_training(r[(k, mode)], want)
+                _assert_same_training(r[(k, mode)], r[(k, "local")],
+                                      rounds=False)
+    for r in runs["trains"][2]:          # the sharded process default
+        _assert_same_training(r[(2, "default")], _ref_pipe(runs, 2, True))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("k", PIPE_KS)
+def test_pipelined_sharded_collectives_equal_local(runs, world, k):
+    """No sharded op runs unsharded on a pool thread: every rank's
+    pipelined run calls exactly the collectives of its local sharded
+    run, with and without concurrent legs."""
+    for r in runs["trains"][world]:
+        local = r[(k, "local")]["calls"]
+        assert local["all_gather"] > 0 and local["exchange"] > 0
+        for mode in ("legs", "sweeps"):
+            assert r[(k, mode)]["calls"] == local
+
+
+def _socket_under_sharded_default(he_backend: str, key_bits: int):
+    """A socket run under a sharded process default (the stand-in mesh:
+    an op on it would fail) equals the local run on losses, weights,
+    bytes by tag and rounds."""
+    from repro_torch.launch.cluster import train_vfl_socket
+    from repro_torch.runtime.policy import RetryPolicy
     parties, y = _train_parties()
-    eng = tengine.CryptoEngine(mesh=_TwoRankMesh())
-    with pytest.raises(ValueError, match="thread pool"):
-        VFLScheduler(parties, y, _train_cfg(), backend=_train_backend(eng),
-                     transport=PipelinedTransport(
-                         max_workers=2, concurrent_legs=concurrent_legs))
-    with pytest.raises(ValueError, match="thread pool"):
-        with tengine.use_engine(eng):
-            VFLScheduler(parties, y, _train_cfg(),
-                         backend=_train_backend(None),
-                         transport=PipelinedTransport(max_workers=2))
+    cfg = ttrainer.VFLConfig(glm="logistic", lr=0.1, max_iter=2,
+                             batch_size=16, he_backend=he_backend,
+                             key_bits=key_bits, tol=0.0, seed=2,
+                             device="cpu")
+    local = ttrainer.train_vfl(parties, y, cfg)
+    policy = RetryPolicy(io_timeout_s=60.0, connect_timeout_s=60.0,
+                         bye_timeout_s=5.0, join_timeout_s=5.0,
+                         term_timeout_s=5.0, poll_interval_s=0.2)
+    with tengine.use_engine(tengine.CryptoEngine(mesh=_TwoRankMesh())):
+        res = train_vfl_socket(parties, y, cfg, policy=policy)
+    assert res.losses == local.losses and res.rounds == local.rounds
+    assert dict(res.meter.by_tag) == dict(local.meter.by_tag)
+    for name, w in local.weights.items():
+        np.testing.assert_array_equal(res.weights[name], w)
 
 
 def test_sharded_default_engine_refused_by_socket_cluster():
-    """A socket party is a process of its own with no process group: a
-    sharded process default would not reach it, so the cluster refuses
-    before spawning."""
-    from repro_torch.launch.cluster import SocketCluster
-    parties, y = _train_parties()
-    with tengine.use_engine(tengine.CryptoEngine(mesh=_TwoRankMesh())):
-        with pytest.raises(ValueError, match="no process group"):
-            SocketCluster(parties, y, _train_cfg())
+    """The cluster accepts a sharded process default: the conductor runs
+    no crypto, so the mock run over sockets equals the local run."""
+    _socket_under_sharded_default("mock", 1024)
+
+
+def test_socket_cluster_paillier_under_sharded_default():
+    """Under a sharded process default each party process builds its own
+    engine from `cfg.crypto_engine` and encrypts with it, and the
+    conductor runs no crypto: a Paillier run over sockets equals the
+    local run."""
+    _socket_under_sharded_default("paillier", 192)
 
 
 def test_run_world_reraises_a_rank_failure():
@@ -470,8 +626,9 @@ def test_mesh_needs_a_world():
 
 
 def test_new_modules_import_without_jax():
-    """The engine API, the sharded engine, its collectives and the mesh
-    functions import with `jax` and `repro` unimportable."""
+    """The engine API, the sharded engine, its collectives and lanes,
+    the mesh functions, the dry-run and the modules the lanes run
+    through import with `jax` and `repro` unimportable."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -483,6 +640,9 @@ def test_new_modules_import_without_jax():
         "import repro_torch.distributed.he_sharding\n"
         "import repro_torch.distributed.secure_ops\n"
         "import repro_torch.launch.mesh\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.secure_dryrun\n"
+        "import repro_torch.runtime.transport, repro_torch.runtime.scheduler\n"
+        "import repro_torch.core.protocols, repro_torch.launch.cluster\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], env=ENV, cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -22,13 +22,17 @@ package's single-process runs, on the CPU.
   `infer.wx_share` bytes equal to analytic bytes;
 * what is refused: a party asked for CUDA without a card, the lossy
   ``"int8"`` wire compression and an unknown chaos profile;
-* the socket transport's link replacement and heartbeats.
+* the socket transport's link replacement and heartbeats;
+* a party waiting between requests holds a peer's closed link until its
+  next request: the parties' staggered exit on `shutdown` is no loss.
 
 Every cluster runs under a short `RetryPolicy`, so a hang fails its
 test instead of eating the suite's clock.
 """
 import os
+import queue
 import socket
+import types
 
 import numpy as np
 import pytest
@@ -47,7 +51,9 @@ from repro_torch.distributed import elastic as telastic
 from repro_torch.launch import cluster as tcluster
 from repro_torch.runtime import VFLScheduler
 from repro_torch.runtime import messages as tmsg
+from repro_torch.runtime import netparty
 from repro_torch.runtime.codec import Codec
+from repro_torch.runtime.dispatch import DispatchCore, PeerLost
 from repro_torch.runtime.policy import RetryPolicy
 from repro_torch.runtime.transport import SocketTransport
 from repro_torch.serve import VFLScoringEngine
@@ -310,3 +316,64 @@ def test_socket_transport_reconnect_and_heartbeat():
     finally:
         a.close()
         b.close()
+
+
+def _closed(src):
+    return tmsg.Control(src, "B1", kind="__closed__",
+                        payload={"error": "PeerClosed: connection closed"})
+
+
+@pytest.mark.parametrize("frames, want", [
+    # C left on its own shutdown before B1's reached B1: no loss
+    ([_closed("C"), tmsg.Control("conductor", "B1", kind="shutdown")],
+     "shutdown"),
+    # a peer lost between requests fails the next request, blamed on it
+    ([_closed("C"), tmsg.Control("conductor", "B1", kind="iter")], "C"),
+    # and fails the wait when no request comes
+    ([_closed("C")], "C"),
+    # the conductor's link closing fails at once
+    ([_closed("conductor")], "conductor"),
+])
+def test_idle_party_holds_a_peers_close_until_its_next_request(frames,
+                                                                want):
+    """`PartyServer._idle_ctrl`, the wait between requests: the conductor
+    sends `shutdown` to the parties one after another and each closes
+    its links as it leaves, so a party can see a peer's close before its
+    own `shutdown`; that must end the run as the `shutdown` does."""
+    tp = types.SimpleNamespace(inbound=queue.Queue())
+    for m in frames:
+        tp.inbound.put(m)
+    srv = netparty.PartyServer.__new__(netparty.PartyServer)
+    srv.core = DispatchCore("B1", tp, io_timeout=0.5,
+                            deliver=lambda m: None)
+    if want == "shutdown":
+        assert srv._idle_ctrl().kind == "shutdown"
+        return
+    with pytest.raises(PeerLost) as err:
+        srv._idle_ctrl()
+    assert err.value.peer == want
+
+
+def test_conductor_collects_byes_past_a_leaving_partys_close():
+    """`SocketCluster._collect("bye")`: a party closes its link right
+    after its `bye`, before the next party's `bye` may have come; every
+    `bye` is still collected.  A close before a party's `bye` is a loss."""
+    def cluster(frames):
+        cl = tcluster.SocketCluster.__new__(tcluster.SocketCluster)
+        cl.names, cl.procs, cl.policy = ["C", "B1"], {}, POLICY
+        cl.tp = types.SimpleNamespace(inbound=queue.Queue())
+        for m in frames:
+            cl.tp.inbound.put(m)
+        return cl
+
+    def bye(src):
+        return tmsg.Control(src, "conductor", kind="bye")
+
+    def closed(src):
+        return tmsg.Control(src, "conductor", kind="__closed__",
+                            payload={"error": "PeerClosed"})
+    got = cluster([bye("C"), closed("C"), bye("B1")])._collect(
+        "bye", timeout=5.0)
+    assert sorted(got) == ["B1", "C"]
+    with pytest.raises(tcluster.ClusterError, match="lost connection to B1"):
+        cluster([bye("C"), closed("B1")])._collect("bye", timeout=5.0)
