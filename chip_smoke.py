@@ -56,7 +56,7 @@ and Table 2 (dvisits, Poisson, batch 512) at paper scale through
 `repro_torch.bench.table1_lr.run` and `table2_pr.run`, whose
 EFMVFL-*-paillier rows (1024-bit keys, the default engine: K1–K3, none
 of K4–K8, counted) must equal their mock rows on losses, weights,
-bytes, rounds and metrics, each profiled once more over 3 iterations;
+bytes, rounds and metrics, each profiled once more over one iteration;
 the SS-LR and SS-HE-LR rows on the card equal to the port's CPU runs of
 the same configuration; and `beaver.paillier_triple` (64,), `hom_sum`,
 `smul_const` and `smul_bits` at 1024-bit keys, right by their algebra
@@ -80,6 +80,10 @@ exits non-zero.
 runs only the training paths (after one warm-up iteration), counted and
 profiled: the part to copy into another checkout of the port to compare
 the two on one card.
+
+    python3 chip_smoke.py --lm       # only the LM phase
+
+runs only `phase_lm` (described below), and
 
     python3 chip_smoke.py --paper    # only the paper's evaluation path
 
@@ -175,6 +179,29 @@ K3 route launched twice (once a pod) and nothing else, held at its
 shape; then the report's socket resume and chaos drills and the serving
 report (no kernel in this process), and the fixed-base table report at
 1024-bit keys (K1, K2 and K4 twice each, held at their shapes).
+Then the LM side (`phase_lm`, also alone as ``python3 chip_smoke.py
+--lm``; memory reckoned from `param_count` against the card's free
+memory before each build): (a) qwen3-4b at its full config (36 layers,
+d 2560, vocab 151936; 4.41 B parameters from a seeded generator on the
+card) pools party B1's token view of 2048 customers × 128 tokens
+(`examples/vfl_lm_head.py`'s task) in batches of 64 under
+`inference_mode`, then `core.vfl_lm.train_federated_head` trains the
+logistic head with party C's 8 features and the label, 1024-bit
+Paillier under `auto`, batch 512, fixed CPs, 3 iterations, equal to the
+mock run on the same representations (losses, weights, bytes, rounds,
+AUC), K1–K3 launched and every other kernel not, K1–K3 held against
+their plain versions at every shape launched (K3 at 512 × 2560);
+(c) on that backbone, prefill 7 tokens and decode the 8th against the
+full forward's logits at the reference test's tolerance, on the bf16
+and the int8 cache, with decode tokens/s; (b) train steps at full width
+and reduced depth (gemma3-4b at 6 of 34 layers, olmoe-1b-7b at 2 of
+16): batch 2 × 512 from `data.tokens.TokenStream`, `train_loss`,
+backward, the global-norm clip and the config's AdamW step, the loss
+finite and lower after 4 steps on the batch, with step time and peak
+memory; (d) every dense, MoE and VLM smoke config in float32, the
+logits on the card within 1e-4 of the CPU's on the same weights; (e)
+kimi-k2-1t-a32b and qwen2-vl-72b built on the meta device, their
+parameter totals beside `param_count`.
 Device time is the sum over the profiler's device events (a torch op's
 own event repeats its kernels' time).
 """
@@ -848,6 +875,10 @@ def phase_paillier(priv, pipeline: str):
 # ---------------------------------------------------------------------------
 
 ITERS = 3
+#: iterations of each profiled run: every iteration of a path does the
+#: same work, and the profiler's tables cost ~0.5 ms of host time a
+#: launch to build (57k launches in 3 RNS iterations)
+PROFILE_ITERS = 1
 
 
 def table1_parties():
@@ -910,6 +941,10 @@ def path_shapes() -> dict:
     return {k: dict(ws[k].shapes) for k in RNS_PATH}
 
 
+#: (kernel, launch shape) pairs `hold_at_shapes` has held in this process
+HELD: set = set()
+
+
 def hold_at_shapes(label: str, shapes: dict) -> int:
     """K1, K2 and K3 (and K4 where `shapes` has its launches) against
     their plain versions on the card at every shape of `shapes`
@@ -917,7 +952,8 @@ def hold_at_shapes(label: str, shapes: dict) -> int:
     context of its CH, random bits (per-row or shared as launched),
     digits (the matvec also at all-max digits) or a random table, with
     the launch shape the path used; every output equal channel for
-    channel.  Returns the number of outputs held."""
+    channel; a shape held earlier in this process is skipped.  Returns
+    the number of outputs held."""
     import numpy as np
     import torch
     from repro_torch.bench import matvec_check, round_check
@@ -926,6 +962,12 @@ def hold_at_shapes(label: str, shapes: dict) -> int:
     gen = np.random.default_rng(31)
     ctxs = round_check.k1_contexts()
     held = []
+    # a (kernel, shape) held earlier in this process is not held again
+    before = sum(len(v) for v in shapes.values())
+    shapes = {k: [sh for sh in v if (k, sh) not in HELD]
+              for k, v in shapes.items()}
+    earlier = before - sum(len(v) for v in shapes.values())
+    HELD.update((k, sh) for k, v in shapes.items() for sh in v)
 
     def ctx_of(ch):
         if ch not in ctxs:
@@ -980,7 +1022,8 @@ def hold_at_shapes(label: str, shapes: dict) -> int:
                                           dg, c, window=window, shape=sh),
              montexp.plain_fixed_base(table, dg, c, sh.segments))
     log(f"[{label}] the RNS kernels equal to their plain versions at every "
-        f"shape they launched at ({len(held)} outputs): " + "; ".join(held))
+        f"shape they launched at ({len(held)} outputs; {earlier} shapes "
+        f"held earlier in this run): " + "; ".join(held))
     return len(held)
 
 
@@ -1095,7 +1138,8 @@ def phase_train(results, mock):
         f"{res.rounds}; peak device memory {peak / 2**20:.1f} MiB; kernel "
         f"launches {launches}")
     prof = profiled_run("rns", lambda: train_vfl(
-        parties, y, VFLConfig(he_backend="paillier", **kw)))
+        parties, y, VFLConfig(he_backend="paillier",
+                              **{**kw, "max_iter": PROFILE_ITERS})))
     results["_train"] = dict(wall_s=wall, s_per_iter=res.runtime_s / ITERS,
                              keygen_s=keygen_s, peak_bytes=peak,
                              mock_s_per_iter=mock.runtime_s / ITERS, **prof)
@@ -1125,7 +1169,8 @@ def phase_path_a(results, mock):
             f"the mock run; peak device memory {peak / 2**20:.1f} MiB; "
             f"kernel launches {launches}")
         prof = profiled_run("path A", lambda: train_vfl(
-            parties, y, VFLConfig(he_backend="paillier", **kw)))
+            parties, y, VFLConfig(he_backend="paillier",
+                                  **{**kw, "max_iter": PROFILE_ITERS})))
     finally:
         if prev is None:
             os.environ.pop(engine.PIPELINE_ENV_VAR, None)
@@ -1167,12 +1212,13 @@ def phase_path_b(results, mock):
             f"MiB each) {build_s:.2f} s to build and save, {load_s:.2f} s "
             f"to load (keygen time subtracted)")
 
-        def run():
+        def run(iters=ITERS):
             backend = protocols.PaillierBackend(
                 ks, np.random.default_rng(0), engine.make("cuda"),
                 device="cuda")
-            return train_vfl(parties, y, VFLConfig(he_backend="paillier",
-                                                   **kw), backend=backend)
+            return train_vfl(parties, y, VFLConfig(
+                he_backend="paillier", **{**kw, "max_iter": iters}),
+                backend=backend)
         res, launches, wall, peak = counted_run(run)
         check_equal("path B (tables)", res, mock)
         # K2 runs only the CRT-decrypt ladders: 2 decryptions of 2 primes;
@@ -1191,7 +1237,7 @@ def phase_path_b(results, mock):
             f"(host clock, iterations only), {wall:.2f} s wall; equal to "
             f"the mock run; peak device memory {peak / 2**20:.1f} MiB; "
             f"kernel launches {launches}")
-        prof = profiled_run("path B", run)
+        prof = profiled_run("path B", lambda: run(PROFILE_ITERS))
     results["_path_b"] = dict(s_per_iter=res.runtime_s / ITERS, wall_s=wall,
                               peak_bytes=peak, table_build_s=build_s,
                               table_load_s=load_s, launches=launches, **prof)
@@ -1483,12 +1529,10 @@ def paper_table(results, mod, label: str, metric_keys):
         f" MiB; launches {launches} ("
         + ", ".join(f"{k} {launches[k] / n_iter:.1f}" for k in RNS_PATH)
         + f" an iteration); the whole table {total_s:.1f} s")
-    # profiled at ITERS iterations: the profiler's tables of a 30-iteration
-    # run (570k launches) take minutes to build
     s = mod.setup(paper_scale=True, device="cuda")
     prof = profiled_run(label, lambda: train_vfl(
         s.parties, s.y, dataclasses.replace(s.cfg, he_backend="paillier",
-                                            max_iter=ITERS)))
+                                            max_iter=PROFILE_ITERS)))
     it = prof["n_iter"]
     log(f"[{label}] device time {prof['all_device_ms'] / it:.2f} ms an "
         f"iteration under the profiler; by kernel an iteration " + json.dumps(
@@ -3218,6 +3262,374 @@ def phase_secure_dryrun(results):
     results["_secure_dryrun"] = out
 
 
+# ---------------------------------------------------------------------------
+# the LM side: the federated head over a full-width backbone, train steps,
+# decode, the card against the CPU, the meta-only archs
+# ---------------------------------------------------------------------------
+
+#: party B1's token view and C's table (`examples/vfl_lm_head.py`'s task,
+#: at n customers × LM_SEQ tokens), the pooling's batch, the head's batch
+LM_N, LM_SEQ, LM_POOL_BATCH, LM_HEAD_BATCH = 2048, 128, 64, 512
+#: (arch, layers kept) of the train steps: full width, depth cut
+LM_TRAIN = (("gemma3-4b", 6), ("olmoe-1b-7b", 2))
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 512, 4
+
+
+def lm_tabular(rng, n):
+    """Party C's 8 features and the label (`examples/vfl_lm_head.py`)."""
+    import numpy as np
+    X = rng.normal(size=(n, 8))
+    w = rng.normal(size=8)
+    logits = 0.7 * (X @ w) + 0.5 * rng.normal(size=n)
+    return X, np.where(logits > np.median(logits), 1.0, -1.0)
+
+
+def lm_token_view(rng, y, vocab, n, seq):
+    """Party B1's tokens: positive customers draw from one half of the
+    vocabulary (`examples/vfl_lm_head.py::_token_view`)."""
+    import numpy as np
+    toks = np.empty((n, seq), np.int32)
+    half = vocab // 2
+    for i in range(n):
+        lo, hi = (0, half) if y[i] > 0 else (half, vocab)
+        toks[i] = rng.integers(lo, hi, seq)
+    return toks
+
+
+def lm_fits(cfg, label: str) -> None:
+    """The weights' bytes from `param_count`, against the card's free
+    memory; fails where they would not fit."""
+    import torch
+    from repro_torch.models import transformer
+    need = transformer.param_bytes(cfg)
+    free, total = torch.cuda.mem_get_info()
+    log(f"[lm] {label}: {cfg.param_count() / 1e9:.3f} B parameters "
+        f"(param_count) = {need / 1e9:.2f} GB in {cfg.dtype}; card free "
+        f"{free / 1e9:.1f} of {total / 1e9:.1f} GB")
+    if need > 0.8 * free:
+        fail(f"{label}: {need / 1e9:.1f} GB of weights do not fit the "
+             f"card's {free / 1e9:.1f} GB free")
+
+
+def lm_head(results, card, api, params) -> dict:
+    """(a) The federated head over the full-width backbone: pooling, then
+    Algorithm 1 with 1024-bit Paillier equal to the mock run; K1-K3
+    counted and held at their shapes, every other kernel at 0."""
+    import numpy as np
+    import torch
+    from repro_torch.core import vfl_lm
+    from repro_torch.core.trainer import VFLConfig
+    cfg = api.cfg
+    rng = np.random.default_rng(5)
+    X_tab, y = lm_tabular(rng, LM_N)
+    tokens = lm_token_view(rng, y, cfg.vocab_size, LM_N, LM_SEQ)
+    extract = vfl_lm.make_lm_backbone(api, params, batch_size=LM_POOL_BATCH)
+    extract(tokens[:LM_POOL_BATCH])                 # warm-up: one batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = extract(tokens)
+    pool_s = time.perf_counter() - t0
+    if reps.shape != (LM_N, cfg.d_model) or not np.isfinite(reps).all():
+        fail(f"lm head: representations {reps.shape} not finite or not "
+             f"({LM_N}, {cfg.d_model})")
+    tok_s = LM_N * LM_SEQ / pool_s
+    log(f"[lm head] pooled {LM_N} x {LM_SEQ} tokens through {cfg.name} "
+        f"({cfg.n_layers} layers, d {cfg.d_model}) in batches of "
+        f"{LM_POOL_BATCH}: {pool_s:.3f} s, {tok_s:.0f} tokens/s; {card}")
+    # both runs train on these representations (B1's extract returns them)
+    parties = [vfl_lm.BackboneParty("C", vfl_lm.identity_backbone, X_tab),
+               vfl_lm.BackboneParty("B1", lambda _: reps, tokens)]
+    kw = dict(glm="logistic", lr=0.3, batch_size=LM_HEAD_BATCH,
+              key_bits=1024, max_iter=ITERS, tol=0.0, seed=6, device="cuda")
+    mock, mock_q = vfl_lm.train_federated_head(
+        parties, y, VFLConfig(he_backend="mock", **kw))
+    (res, quality), launches, wall, peak = counted_run(
+        lambda: vfl_lm.train_federated_head(
+            parties, y, VFLConfig(he_backend="paillier", **kw)))
+    shapes = path_shapes()
+    check_equal("lm head", res, mock)
+    if quality != mock_q:
+        fail(f"lm head: AUC {quality} differs from the mock run's {mock_q}")
+    require("lm head", launches, positive=RNS_PATH, zero=OFF_RNS_PATH)
+    for k, n in launches.items():
+        results.setdefault(k, {})["lm_head_launches"] = n
+    log(f"[lm head] {ITERS} iterations, 1024-bit Paillier (auto), batch "
+        f"{LM_HEAD_BATCH}, C 8 + B1 {cfg.d_model} columns: "
+        f"{res.runtime_s / res.n_iter:.3f} s/iteration (mock "
+        f"{mock.runtime_s / mock.n_iter:.3f}); losses {res.losses} equal "
+        f"to the mock run's, as are weights, bytes and rounds; train AUC "
+        f"{quality['train_auc']:.4f}; peak device memory of the run "
+        f"{peak / 2**20:.1f} MiB; launches {launches}; {card}")
+    log("[lm head] launches by shape: " + json.dumps(
+        {k: {str(s): n for s, n in v.items()} for k, v in shapes.items()}))
+    t0 = time.perf_counter()
+    held = hold_at_shapes("lm head", shapes)
+    hold_s = time.perf_counter() - t0
+    log(f"[lm head] held in {hold_s:.1f} s")
+    prof = profiled_run("lm head", lambda: vfl_lm.train_federated_head(
+        parties, y, VFLConfig(he_backend="paillier",
+                              **{**kw, "max_iter": PROFILE_ITERS}))[0])
+    k3 = lm_head_k3(card, [s for s in shapes["rns_he_matvec"]
+                           if s[1] == cfg.d_model])
+    results["rns_he_matvec"]["lm_head"] = k3
+    return dict(pool_s=pool_s, pool_tokens_per_s=tok_s,
+                s_per_iter=res.runtime_s / res.n_iter,
+                mock_s_per_iter=mock.runtime_s / mock.n_iter,
+                wall_s=wall, peak_bytes=peak, launches=launches,
+                train_auc=quality["train_auc"], held=held, hold_s=hold_s,
+                k3=k3, **prof)
+
+
+def lm_head_k3(card, shapes) -> dict:
+    """K3 at the head's widest launch (B1's 2560 columns): CUDA events
+    and a CUDA graph against the plain version and the bound, on random
+    states and digits of that shape."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import matvec_check, round_check
+    from repro_torch.kernels import montexp
+    if len(shapes) != 1:
+        fail(f"lm head: K3 launched at {shapes}, expected one wide shape")
+    nrows, m, levels, window, ch, sh = shapes[0]
+    ctx = round_check.k1_contexts()[ch]
+    gen = np.random.default_rng(27)
+    dev = torch.device("cuda")
+    cts = _random_states(ctx, nrows, gen, dev)
+    digits = torch.as_tensor(gen.integers(0, 1 << window,
+                                          size=(levels, nrows, m)),
+                             dtype=torch.int32, device=dev)
+
+    def k3():
+        return montexp.rns_he_matvec_tiled(cts, digits, ctx, window=window,
+                                           shape=sh)
+    ms = time_ms(k3, 3)
+    graph_ms = matvec_check.graph_ms(k3, 3)
+    t0 = time.perf_counter()
+    montexp.plain_matvec(cts, digits, ctx, window, sh.chunk, sh.split)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    products, squares = matvec_work(digits, window)
+    b, by = bound(cts.numel() * 4 + digits.numel() * 4 + m * ctx.CH * 4,
+                  products + squares + m, ctx)
+    log(f"[lm head] rns_he_matvec ({nrows} rows, m {m}, {levels} levels, "
+        f"window {window}, {sh}): {ms:.3f} ms, {graph_ms:.3f} ms in a CUDA "
+        f"graph, plain {plain_ms:.1f} ms, bound {b:.5f} ms ({by}); {card}")
+    return dict(rows=nrows, m=m, levels=levels, ms=ms, graph_ms=graph_ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by)
+
+
+def lm_decode(card, api, params) -> dict:
+    """(c) Prefill 7 tokens, decode the 8th, against the full forward's
+    logits at the reference test's tolerance, on the bf16 and the int8
+    cache; decode tokens/s."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    cfg = api.cfg
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=g,
+                         device="cuda")
+    out = {}
+    with torch.inference_mode():
+        full, _, _ = transformer.forward(params, cfg, toks, kv_block=None)
+        for kind in ("bfloat16", "int8"):
+            c = dataclasses.replace(cfg, kv_cache_dtype=kind)
+            _, cache = transformer.prefill(params, c, toks[:, :7], 16)
+            dec, cache = transformer.decode_step(params, c, cache,
+                                                 toks[:, 7:8])
+            got, want = dec.float().cpu().numpy(), full[:, 7].cpu().numpy()
+            err = np.abs(got - want)
+            if not np.isfinite(got).all() or (
+                    err > 0.75 + 0.15 * np.abs(want)).any():
+                fail(f"lm decode ({kind} cache): decode differs from the "
+                     f"full forward (max abs diff {err.max():.4f})")
+            steps = 8
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                dec, cache = transformer.decode_step(params, c, cache,
+                                                     toks[:, 7:8])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / steps
+            out[kind] = dict(max_abs_err=float(err.max()), step_s=dt,
+                             tokens_per_s=2 / dt)
+            log(f"[lm decode] {cfg.name} {kind} cache: prefill 7 + decode "
+                f"1 equal to the full forward (max abs diff "
+                f"{err.max():.4f}; tolerance 0.75 + 0.15|x|); batch 2 "
+                f"decode {dt * 1e3:.2f} ms/step = {2 / dt:.1f} tokens/s; "
+                f"{card}")
+    return out
+
+
+def lm_train(card) -> dict:
+    """(b) Train steps at full width, reduced depth: `train_loss`,
+    backward, the global-norm clip and the config's AdamW step on one
+    `TokenStream` batch; the loss finite and lower after the steps."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry as configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import registry as models
+    from repro_torch.optim import clip_by_global_norm, make_optimizer
+    tc = TrainConfig()
+    out = {}
+    for arch, layers in LM_TRAIN:
+        full = configs.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        lm_fits(cfg, f"{arch} train ({layers} of {full.n_layers} layers)")
+        api = models.build(cfg)
+        model = api.init_params(torch.Generator(device="cuda").manual_seed(
+            tc.seed), device="cuda")
+        stream = TokenStream(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                             seed=tc.seed)
+        b = {k: torch.as_tensor(v, device="cuda")
+             for k, v in stream.next_batch().items()}
+        opt = make_optimizer(cfg.optimizer, weight_decay=tc.weight_decay)
+        named = dict(model.named_parameters())
+        state = opt.init(named)
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(LM_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss = api.train_loss(model, b)
+            loss.backward()
+            grads, norm = clip_by_global_norm(
+                {k: p.grad for k, p in named.items()}, tc.grad_clip)
+            new, state = opt.update(grads, state, named, tc.lr)
+            with torch.no_grad():
+                for k, p in named.items():
+                    p.copy_(new[k])
+                    p.grad = None
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss.detach()))
+        with torch.no_grad():
+            end = float(api.train_loss(model, b))
+        peak = torch.cuda.max_memory_allocated()
+        if not all(map(math.isfinite, losses + [end])) or end >= losses[0]:
+            fail(f"lm train {arch}: loss did not fall over "
+                 f"{LM_TRAIN_STEPS} steps: {losses} then {end}")
+        n = sum(p.numel() for p in model.parameters())
+        step_s = sum(times[1:]) / (len(times) - 1)
+        log(f"[lm train] {arch}, depth cut {full.n_layers} -> {layers} "
+            f"layers, full width ({n / 1e9:.3f} B parameters): batch "
+            f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} from TokenStream, "
+            f"{cfg.optimizer} (lr {tc.lr}, clip {tc.grad_clip}), loss "
+            f"{losses[0]:.4f} -> {end:.4f} over {LM_TRAIN_STEPS} steps "
+            f"({losses}); {step_s * 1e3:.1f} ms/step after the first "
+            f"({times[0] * 1e3:.1f}); peak device memory "
+            f"{peak / 2**30:.2f} GiB; {card}")
+        out[arch] = dict(layers=layers, full_layers=full.n_layers,
+                         params=n, losses=losses, end_loss=end,
+                         step_s=step_s, first_step_s=times[0],
+                         peak_bytes=peak)
+        del model, named, state, new, grads, b
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_card_vs_cpu(card) -> dict:
+    """(d) Every dense, MoE and VLM smoke config in float32 with the same
+    weights: the logits on the card within 1e-4 of the CPU's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry as configs
+    from repro_torch.models import registry as models
+    from repro_torch.models import transformer
+    out = {}
+    for arch in configs.list_archs() + ["gpt-100m"]:
+        cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                                  dtype="float32")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            continue
+        cpu = models.build(cfg).init_params(
+            torch.Generator().manual_seed(0), device="cpu")
+        dev = transformer.init_params(None, cfg, device="meta").to_empty(
+            device="cuda")
+        dev.load_state_dict(cpu.state_dict())
+        g = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=g)
+        ve = (torch.randn((2, cfg.vision_patches, cfg.d_model), generator=g)
+              if cfg.family == "vlm" else None)
+        with torch.inference_mode():
+            want, _, _ = transformer.forward(cpu, cfg, toks, ve)
+            got, _, _ = transformer.forward(
+                dev, cfg, toks.cuda(), None if ve is None else ve.cuda())
+        err = float((got.cpu() - want).abs().max())
+        if not torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4):
+            fail(f"lm card vs cpu: {arch} logits differ by {err}")
+        out[arch] = err
+    log(f"[lm card vs cpu] float32 smoke configs, logits on the card "
+        f"within 1e-4 of the CPU's: max abs diff {json.dumps(out)}; {card}")
+    return out
+
+
+def lm_meta() -> dict:
+    """(e) The archs over one card's memory, built on the meta device."""
+    from repro_torch.configs import registry as configs
+    from repro_torch.models import registry as models
+    out = {}
+    for arch in ("kimi-k2-1t-a32b", "qwen2-vl-72b"):
+        cfg = configs.get_config(arch)
+        model = models.build(cfg).init_params(None, device="meta")
+        n = sum(p.numel() for p in model.parameters())
+        if any(p.device.type != "meta" for p in model.parameters()):
+            fail(f"lm meta: {arch} holds a parameter off the meta device")
+        out[arch] = dict(params=n, param_count=cfg.param_count())
+        log(f"[lm meta] {arch} on meta: {n} parameters, param_count "
+            f"{cfg.param_count()} (the analytic count leaves out the "
+            f"norm gains: {n - cfg.param_count()})")
+        del model
+    return out
+
+
+def phase_lm(results, card):
+    """The LM side on the card: (a) the federated head over qwen3-4b at its
+    full config, (c) decode on that backbone, (b) train steps, (d) the
+    card against the CPU, (e) the meta-only archs."""
+    import torch
+    from repro_torch.configs import registry as configs
+    from repro_torch.models import registry as models
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config("qwen3-4b")
+    lm_fits(cfg, "qwen3-4b (full config)")
+    api = models.build(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    log(f"[lm] qwen3-4b built on the card from a seeded generator: {n} "
+        f"parameters ({n / 1e9:.3f} B; param_count {cfg.param_count()}, "
+        f"which leaves out the norm gains), {time.perf_counter() - t0:.2f} "
+        f"s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    out, parts_s = {}, {}
+
+    def part(name, fn, *a):
+        t0 = time.perf_counter()
+        out[name] = fn(*a)
+        parts_s[name] = time.perf_counter() - t0
+    part("head", lm_head, results, card, api, params)
+    part("decode", lm_decode, card, api, params)
+    del params
+    torch.cuda.empty_cache()
+    part("train", lm_train, card)
+    part("card_vs_cpu", lm_card_vs_cpu, card)
+    part("meta", lm_meta)
+    out.update(parts_s=parts_s, phase_s=time.perf_counter() - t_phase)
+    log(f"[lm] phase {out['phase_s']:.1f} s (by part "
+        f"{json.dumps({k: round(v, 1) for k, v in parts_s.items()})}); "
+        f"{card}")
+    results["_lm"] = out
+
+
 def phase_k1_shapes(results):
     """K1 at every (batch, CH, shared y) it launched at on the RNS path
     and path B, each in a CUDA graph beside an empty kernel's launch
@@ -3244,7 +3656,9 @@ def phase_k1_shapes(results):
             (r["batch"], r["CH"], r["shared_y"]), 0) for r in rows)
         graph = sum(r["graph_ms"] * counts.get(
             (r["batch"], r["CH"], r["shared_y"]), 0) for r in rows)
-        dev = results[prof]["device_ms"].get("rns_montmul", 0.0)
+        # the profile's K1 time, scaled from its iterations to ITERS
+        dev = results[prof]["device_ms"].get("rns_montmul", 0.0) \
+            * ITERS / results[prof]["n_iter"]
         log(f"[k1] {label}: {sum(counts.values())} launches; profile "
             f"{dev:.3f} ms, their graph times {graph:.3f} ms, their bounds "
             f"{bounds:.5f} ms, lost {dev - bounds:.3f} ms per {ITERS} "
@@ -3348,6 +3762,12 @@ def main(argv=None):
                     "card at 30720 x 32 and 1024-bit keys, both shard "
                     "modes, windows 4 and 1, CIOS pinned; the socket, "
                     "chaos, serving and table reports)")
+    ap.add_argument("--lm", action="store_true",
+                    help="only run the LM phase (the federated head over "
+                    "a full-width qwen3-4b with 1024-bit Paillier, train "
+                    "steps of gemma3-4b and olmoe-1b-7b at reduced depth, "
+                    "decode on both caches, the card against the CPU, the "
+                    "meta-only archs)")
     ap.add_argument("--chaos", action="store_true",
                     help="only run the chaos link layer's phase (Table 1 "
                     "over party processes under the gauntlet with zlib "
@@ -3425,6 +3845,11 @@ def main(argv=None):
             f"{time.perf_counter() - t_start:.1f} s; card {card}; summary "
             f"{json.dumps(results['_secure_dryrun'], default=str)}")
         return
+    if args.lm:
+        phase_lm(results, card)
+        log(f"[done] LM phase only, {time.perf_counter() - t_start:.1f} s; "
+            f"card {card}; summary {json.dumps(results['_lm'])}")
+        return
     if args.paper:
         phase_paper(results, priv)
         log(f"[done] paper path only, {time.perf_counter() - t_start:.1f} "
@@ -3458,8 +3883,10 @@ def main(argv=None):
     timed(phase_paper, results, priv)
     timed(phase_serve, results, mock)
     for phase in (phase_socket, phase_chaos, phase_sharded,
-                  phase_secure_dryrun, phase_k1_shapes, phase_probe,
-                  phase_bench):
+                  phase_secure_dryrun):
+        timed(phase, results)
+    timed(phase_lm, results, card)
+    for phase in (phase_k1_shapes, phase_probe, phase_bench):
         timed(phase, results)
     summary = {k: results.pop(k) for k in list(results) if k[0] == "_"}
     kernels = []
@@ -3475,7 +3902,8 @@ def main(argv=None):
         for extra in ("graph_ms", "shapes", "paper_launches",
                       "serve_launches", "serve_shapes", "socket_launches",
                       "codec_shapes", "chaos_launches",
-                      "sharded_launches", "dryrun_launches"):
+                      "sharded_launches", "dryrun_launches",
+                      "lm_head_launches", "lm_head"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if "paper_launches" in r:      # the iterations they were counted over

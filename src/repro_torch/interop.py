@@ -6,12 +6,16 @@ arrays: callers pass the reference objects' fields).
   checks every numpy field it is given against the derived one.
 * `table_from_numpy` builds the port's `FixedBaseTable` from a reference
   table's payload and identity fields, checking its header.
+* `lm_params_from_numpy` builds the port's `Transformer` from the
+  reference's `init_params` tree as nested dicts of numpy arrays.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.crypto import fixed_base, paillier
+from repro_torch.models import transformer
 
 
 def keys_from_numpy(p: int, q: int, key_bits: int,
@@ -44,3 +48,48 @@ def table_from_numpy(table_rns: np.ndarray, *, purpose: str, n: int,
         raise fixed_base.TableMismatchError(
             f"table header {dict(header)} differs from {table.header()}")
     return table
+
+
+def lm_params_from_numpy(cfg, tree: dict, device="cuda"):
+    """The port's `models.transformer.Transformer` for `cfg` holding the
+    weights of a reference `transformer.init_params` tree: nested dicts of
+    numpy arrays, bf16 leaves passed as float32 (an exact upcast).  The
+    stacked L axis of ``tree["layers"]`` is split into the blocks and each
+    weight cast back to its dtype in the port.  Every leaf must be used
+    and every shape must match; otherwise a `ValueError` is raised."""
+    model = transformer.init_params(None, cfg, device="meta")
+    model = model.to_empty(device=device)
+    used = set()
+
+    def leaf(path):
+        node = tree
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                raise ValueError(f"tree has no leaf {'/'.join(path)}")
+            node = node[key]
+        used.add(tuple(path))
+        return np.asarray(node)
+
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "blocks":
+                arr = leaf(["layers"] + parts[2:])[int(parts[1])]
+            else:
+                arr = leaf(parts)
+            if tuple(arr.shape) != tuple(param.shape):
+                raise ValueError(f"{name}: shape {arr.shape} in the tree, "
+                                 f"{tuple(param.shape)} in the port")
+            param.copy_(torch.tensor(arr))
+
+    def paths(node, prefix=()):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from paths(v, prefix + (k,))
+        else:
+            yield prefix
+    extra = set(paths(tree)) - used
+    if extra:
+        raise ValueError(f"tree leaves the port has no parameter for: "
+                         f"{sorted('/'.join(p) for p in extra)}")
+    return model

@@ -449,8 +449,9 @@ def test_concurrent_save_async_and_restore(tmp_path):
 
 def test_new_modules_import_without_jax():
     """The checkpoint, serving and wire modules (codec, socket transport,
-    party server, cluster launcher, handoff plan), their benchmarks and
-    the chip smoke import with `jax`, `repro` and `ml_dtypes`
+    party server, cluster launcher, handoff plan), their benchmarks, the
+    LM side (configs, models, optimizers, token stream, the federated
+    head) and the chip smoke import with `jax`, `repro` and `ml_dtypes`
     unimportable."""
     import subprocess
     code = (
@@ -468,6 +469,15 @@ def test_new_modules_import_without_jax():
         "import repro_torch.runtime.transport, repro_torch.launch.cluster\n"
         "import repro_torch.distributed.elastic\n"
         "import repro_torch.bench.wire_bench\n"
+        "import repro_torch.configs.registry, repro_torch.configs.base\n"
+        "import repro_torch.models.layers, repro_torch.models.attention\n"
+        "import repro_torch.models.moe, repro_torch.models.transformer\n"
+        "import repro_torch.models.registry, repro_torch.optim\n"
+        "import repro_torch.data.tokens, repro_torch.core.vfl_lm\n"
+        "import repro_torch.interop\n"
+        "from repro_torch.configs import registry as r\n"
+        "for a in r.list_archs() + ['gpt-100m']:\n"
+        "    r.get_config(a), r.get_smoke_config(a)\n"
         "import chip_smoke\n"
         "print('ok')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
