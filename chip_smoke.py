@@ -83,7 +83,8 @@ the two on one card.
 
     python3 chip_smoke.py --lm       # only the LM phase
 
-runs only `phase_lm` (described below), and
+runs only `phase_lm` (described below), ``--lm-families`` only
+`phase_lm_families`, and
 
     python3 chip_smoke.py --paper    # only the paper's evaluation path
 
@@ -180,8 +181,8 @@ shape; then the report's socket resume and chaos drills and the serving
 report (no kernel in this process), and the fixed-base table report at
 1024-bit keys (K1, K2 and K4 twice each, held at their shapes).
 Then the LM side (`phase_lm`, also alone as ``python3 chip_smoke.py
---lm``; memory reckoned from `param_count` against the card's free
-memory before each build): (a) qwen3-4b at its full config (36 layers,
+--lm``; before each build the weights' bytes, from the config's build on
+the meta device, reckoned against the card's free memory): (a) qwen3-4b at its full config (36 layers,
 d 2560, vocab 151936; 4.41 B parameters from a seeded generator on the
 card) pools party B1's token view of 2048 customers × 128 tokens
 (`examples/vfl_lm_head.py`'s task) in batches of 64 under
@@ -202,6 +203,25 @@ memory; (d) every dense, MoE and VLM smoke config in float32, the
 logits on the card within 1e-4 of the CPU's on the same weights; (e)
 kimi-k2-1t-a32b and qwen2-vl-72b built on the meta device, their
 parameter totals beside `param_count`.
+Then the LM side's other families and its server (`phase_lm_families`,
+also alone as ``python3 chip_smoke.py --lm-families``, where it builds
+its own qwen3-4b), each part with K1-K8 launched 0 times: (a)
+`serve.ServeEngine` over `phase_lm`'s qwen3-4b at its full config, 3
+slots, max_len 512, 6 seeded requests (prompts of 9-60 tokens, buckets
+16-64; 4-12 new tokens), each request's tokens equal to a prefill and
+greedy decode loop of that request alone, with requests/s, tokens/s and
+ms a step; (b) rwkv6-1.6b at its full config (24 layers, d 2048): 1 + 4
+train steps at 2 x 256 from `TokenStream` (sequence cut from 512: the
+wkv recurrence is a loop over tokens), forward 7 and decode the 8th
+against the full forward at the reference test's tolerance, decode ms
+a token; (c) zamba2-7b at its full config (81 layers, d 3584, 13
+shared applications): the same decode check and timing; train steps at
+full width and depth 12 of 81 (full depth's weights, gradients and f32
+moments exceed the card); (d) whisper-base at its full config (6 + 6
+layers, d 512, 1500 frames): train steps on seeded frames with 2 x 128
+tokens, 8 cached decode steps with `enc_out` each against the
+teacher-forced logits; (e) the three families' smoke configs in
+float32, the logits on the card within 1e-4 of the CPU's.
 Device time is the sum over the profiler's device events (a torch op's
 own event repeats its kernels' time).
 """
@@ -3297,15 +3317,16 @@ def lm_token_view(rng, y, vocab, n, seq):
 
 
 def lm_fits(cfg, label: str) -> None:
-    """The weights' bytes from `param_count`, against the card's free
-    memory; fails where they would not fit."""
+    """The weights' bytes, from the config's build on the meta device
+    (`param_count` is approximate for some families), against the card's
+    free memory; fails where they would not fit."""
     import torch
-    from repro_torch.models import transformer
-    need = transformer.param_bytes(cfg)
+    from repro_torch.models import registry
+    need = registry.param_bytes(cfg)
     free, total = torch.cuda.mem_get_info()
-    log(f"[lm] {label}: {cfg.param_count() / 1e9:.3f} B parameters "
-        f"(param_count) = {need / 1e9:.2f} GB in {cfg.dtype}; card free "
-        f"{free / 1e9:.1f} of {total / 1e9:.1f} GB")
+    log(f"[lm] {label}: {need / 1e9:.2f} GB of weights in {cfg.dtype} "
+        f"(the meta build; param_count {cfg.param_count() / 1e9:.3f} B); "
+        f"card free {free / 1e9:.1f} of {total / 1e9:.1f} GB")
     if need > 0.8 * free:
         fail(f"{label}: {need / 1e9:.1f} GB of weights do not fit the "
              f"card's {free / 1e9:.1f} GB free")
@@ -3463,6 +3484,80 @@ def lm_decode(card, api, params) -> dict:
     return out
 
 
+def lm_train_steps(label, api, model, b, steps: int, card) -> dict:
+    """`steps` train steps on the batch `b`: `train_loss`, backward, the
+    global-norm clip and the config's AdamW step; the loss finite and
+    lower after the steps.  Step time (after the first) and peak device
+    memory."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import clip_by_global_norm, make_optimizer
+    tc = TrainConfig()
+    cfg = api.cfg
+    opt = make_optimizer(cfg.optimizer, weight_decay=tc.weight_decay)
+    named = dict(model.named_parameters())
+    state = opt.init(named)
+    losses, times, mallocs = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        mallocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0))
+        t0 = time.perf_counter()
+        loss = api.train_loss(model, b)
+        loss.backward()
+        grads, norm = clip_by_global_norm(
+            {k: p.grad for k, p in named.items()}, tc.grad_clip)
+        new, state = opt.update(grads, state, named, tc.lr)
+        with torch.no_grad():
+            for k, p in named.items():
+                p.copy_(new[k])
+                p.grad = None
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+    del new, grads, state
+    with torch.no_grad():
+        end = float(api.train_loss(model, b))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, losses + [end])) or end >= losses[0]:
+        fail(f"{label}: loss did not fall over {steps} steps: {losses} "
+             f"then {end}")
+    n = sum(p.numel() for p in model.parameters())
+    step_s = sum(times[1:]) / (len(times) - 1)
+    shape = "x".join(str(d) for d in b["tokens"].shape)
+    log(f"[{label}] {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model} "
+        f"({n / 1e9:.3f} B parameters): batch {shape}, {cfg.optimizer} (lr "
+        f"{tc.lr}, clip {tc.grad_clip}), loss {losses[0]:.4f} -> {end:.4f} "
+        f"over {steps} steps ({losses}); {step_s * 1e3:.1f} ms/step after "
+        f"the first ({times[0] * 1e3:.1f}; device allocations by step "
+        f"{[b - a for a, b in zip(mallocs, mallocs[1:])]}); peak device "
+        f"memory {peak / 2**30:.2f} GiB; {card}")
+    return dict(layers=cfg.n_layers, params=n, losses=losses, end_loss=end,
+                step_s=step_s, first_step_s=times[0], peak_bytes=peak)
+
+
+def token_batch(cfg, batch: int, seq: int) -> dict:
+    """One `TokenStream` batch on the card, seeded as `TrainConfig`."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.tokens import TokenStream
+    stream = TokenStream(cfg.vocab_size, batch, seq, seed=TrainConfig().seed)
+    return {k: torch.as_tensor(v, device="cuda")
+            for k, v in stream.next_batch().items()}
+
+
+def lm_build(cfg, label: str):
+    """(api, model): `cfg` built on the card from a seeded generator, its
+    weights reckoned against the card's free memory first."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import registry as models
+    lm_fits(cfg, label)
+    api = models.build(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(TrainConfig().seed)
+    return api, api.init_params(gen, device="cuda")
+
+
 def lm_train(card) -> dict:
     """(b) Train steps at full width, reduced depth: `train_loss`,
     backward, the global-norm clip and the config's AdamW step on one
@@ -3471,102 +3566,70 @@ def lm_train(card) -> dict:
 
     import torch
     from repro_torch.configs import registry as configs
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.tokens import TokenStream
-    from repro_torch.models import registry as models
-    from repro_torch.optim import clip_by_global_norm, make_optimizer
-    tc = TrainConfig()
     out = {}
     for arch, layers in LM_TRAIN:
         full = configs.get_config(arch)
         cfg = dataclasses.replace(full, n_layers=layers)
-        lm_fits(cfg, f"{arch} train ({layers} of {full.n_layers} layers)")
-        api = models.build(cfg)
-        model = api.init_params(torch.Generator(device="cuda").manual_seed(
-            tc.seed), device="cuda")
-        stream = TokenStream(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
-                             seed=tc.seed)
-        b = {k: torch.as_tensor(v, device="cuda")
-             for k, v in stream.next_batch().items()}
-        opt = make_optimizer(cfg.optimizer, weight_decay=tc.weight_decay)
-        named = dict(model.named_parameters())
-        state = opt.init(named)
-        losses, times = [], []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(LM_TRAIN_STEPS):
-            t0 = time.perf_counter()
-            loss = api.train_loss(model, b)
-            loss.backward()
-            grads, norm = clip_by_global_norm(
-                {k: p.grad for k, p in named.items()}, tc.grad_clip)
-            new, state = opt.update(grads, state, named, tc.lr)
-            with torch.no_grad():
-                for k, p in named.items():
-                    p.copy_(new[k])
-                    p.grad = None
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            losses.append(float(loss.detach()))
-        with torch.no_grad():
-            end = float(api.train_loss(model, b))
-        peak = torch.cuda.max_memory_allocated()
-        if not all(map(math.isfinite, losses + [end])) or end >= losses[0]:
-            fail(f"lm train {arch}: loss did not fall over "
-                 f"{LM_TRAIN_STEPS} steps: {losses} then {end}")
-        n = sum(p.numel() for p in model.parameters())
-        step_s = sum(times[1:]) / (len(times) - 1)
-        log(f"[lm train] {arch}, depth cut {full.n_layers} -> {layers} "
-            f"layers, full width ({n / 1e9:.3f} B parameters): batch "
-            f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} from TokenStream, "
-            f"{cfg.optimizer} (lr {tc.lr}, clip {tc.grad_clip}), loss "
-            f"{losses[0]:.4f} -> {end:.4f} over {LM_TRAIN_STEPS} steps "
-            f"({losses}); {step_s * 1e3:.1f} ms/step after the first "
-            f"({times[0] * 1e3:.1f}); peak device memory "
-            f"{peak / 2**30:.2f} GiB; {card}")
-        out[arch] = dict(layers=layers, full_layers=full.n_layers,
-                         params=n, losses=losses, end_loss=end,
-                         step_s=step_s, first_step_s=times[0],
-                         peak_bytes=peak)
-        del model, named, state, new, grads, b
+        label = f"{arch} train ({layers} of {full.n_layers} layers)"
+        api, model = lm_build(cfg, label)
+        b = token_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+        out[arch] = lm_train_steps("lm train", api, model, b,
+                                   LM_TRAIN_STEPS, card)
+        out[arch]["full_layers"] = full.n_layers
+        del model, b
         torch.cuda.empty_cache()
     return out
 
 
-def lm_card_vs_cpu(card) -> dict:
-    """(d) Every dense, MoE and VLM smoke config in float32 with the same
-    weights: the logits on the card within 1e-4 of the CPU's."""
+def lm_logits(cfg, params, toks, extra):
+    """The logits of a forward over `toks` by family (`extra`: the VLM's
+    vision embeddings, whisper's frames, or None)."""
+    from repro_torch.models import mamba2, rwkv6, transformer, whisper
+    if cfg.family == "ssm":
+        return rwkv6.forward(params, cfg, toks)[0]
+    if cfg.family == "hybrid":
+        return mamba2.forward(params, cfg, toks)[0]
+    if cfg.family == "audio":
+        enc = whisper.encode(params, cfg, extra)
+        return whisper.decode(params, cfg, toks, enc)[0]
+    return transformer.forward(params, cfg, toks, extra)[0]
+
+
+def lm_card_vs_cpu(card, families) -> dict:
+    """The smoke configs of `families` in float32 with the same weights:
+    the logits on the card within 1e-4 of the CPU's."""
     import dataclasses
 
     import torch
     from repro_torch.configs import registry as configs
     from repro_torch.models import registry as models
-    from repro_torch.models import transformer
     out = {}
     for arch in configs.list_archs() + ["gpt-100m"]:
         cfg = dataclasses.replace(configs.get_smoke_config(arch),
                                   dtype="float32")
-        if cfg.family not in ("dense", "moe", "vlm"):
+        if cfg.family not in families:
             continue
-        cpu = models.build(cfg).init_params(
-            torch.Generator().manual_seed(0), device="cpu")
-        dev = transformer.init_params(None, cfg, device="meta").to_empty(
-            device="cuda")
+        api = models.build(cfg)
+        cpu = api.init_params(torch.Generator().manual_seed(0), device="cpu")
+        dev = api.init_params(None, device="meta").to_empty(device="cuda")
         dev.load_state_dict(cpu.state_dict())
         g = torch.Generator().manual_seed(1)
         toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=g)
-        ve = (torch.randn((2, cfg.vision_patches, cfg.d_model), generator=g)
-              if cfg.family == "vlm" else None)
+        rows = {"vlm": cfg.vision_patches, "audio": cfg.encoder_seq}.get(
+            cfg.family)
+        extra = (torch.randn((2, rows, cfg.d_model), generator=g)
+                 if rows else None)
         with torch.inference_mode():
-            want, _, _ = transformer.forward(cpu, cfg, toks, ve)
-            got, _, _ = transformer.forward(
-                dev, cfg, toks.cuda(), None if ve is None else ve.cuda())
+            want = lm_logits(cfg, cpu, toks, extra)
+            got = lm_logits(cfg, dev, toks.cuda(),
+                            None if extra is None else extra.cuda())
         err = float((got.cpu() - want).abs().max())
         if not torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4):
             fail(f"lm card vs cpu: {arch} logits differ by {err}")
         out[arch] = err
-    log(f"[lm card vs cpu] float32 smoke configs, logits on the card "
-        f"within 1e-4 of the CPU's: max abs diff {json.dumps(out)}; {card}")
+    log(f"[lm card vs cpu] float32 smoke configs of {'/'.join(families)}, "
+        f"logits on the card within 1e-4 of the CPU's: max abs diff "
+        f"{json.dumps(out)}; {card}")
     return out
 
 
@@ -3589,10 +3652,12 @@ def lm_meta() -> dict:
     return out
 
 
-def phase_lm(results, card):
+def phase_lm(results, card, hand=None):
     """The LM side on the card: (a) the federated head over qwen3-4b at its
     full config, (c) decode on that backbone, (b) train steps, (d) the
-    card against the CPU, (e) the meta-only archs."""
+    card against the CPU, (e) the meta-only archs.  With a dict `hand`,
+    the qwen3-4b build is left in it (``"qwen"``: (api, params)) for
+    `phase_lm_families` to serve, which frees it."""
     import torch
     from repro_torch.configs import registry as configs
     from repro_torch.models import registry as models
@@ -3618,16 +3683,257 @@ def phase_lm(results, card):
         parts_s[name] = time.perf_counter() - t0
     part("head", lm_head, results, card, api, params)
     part("decode", lm_decode, card, api, params)
+    if hand is not None:
+        hand["qwen"] = (api, params)
     del params
     torch.cuda.empty_cache()
     part("train", lm_train, card)
-    part("card_vs_cpu", lm_card_vs_cpu, card)
+    part("card_vs_cpu", lm_card_vs_cpu, card, ("dense", "moe", "vlm"))
     part("meta", lm_meta)
     out.update(parts_s=parts_s, phase_s=time.perf_counter() - t_phase)
     log(f"[lm] phase {out['phase_s']:.1f} s (by part "
         f"{json.dumps({k: round(v, 1) for k, v in parts_s.items()})}); "
         f"{card}")
     results["_lm"] = out
+
+
+# ---------------------------------------------------------------------------
+# the LM side's other families and its server: the continuous-batching
+# ServeEngine over qwen3-4b, rwkv6, zamba2 and whisper at full width
+# ---------------------------------------------------------------------------
+
+#: (prompt lengths, new tokens) of the served requests: 6 > 3 slots
+LM_SERVE_SLOTS, LM_SERVE_MAX_LEN, LM_SERVE_REQUESTS = 3, 512, 6
+#: the families' train batches and steps (the first step is the warm-up)
+LM_FAMILY_SEQ, LM_WHISPER_SEQ, LM_FAMILY_STEPS = 256, 128, 5
+#: zamba2's train steps at full width and this depth (two shared
+#: applications, one of each shared block); full depth does not fit
+LM_ZAMBA2_TRAIN_LAYERS = 12
+#: decode steps timed, and whisper's cached steps held to the teacher-forced
+#: logits
+LM_DECODE_STEPS = 8
+
+
+def lm_serve(card, api, params) -> dict:
+    """(a) `serve.ServeEngine` over the full qwen3-4b: 6 seeded requests
+    through 3 slots, each request's tokens equal to a prefill and greedy
+    decode loop of that request alone; requests/s, tokens/s, ms a step."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import _bucket
+    cfg = api.cfg
+    rng = np.random.default_rng(21)      # prompts in all three buckets
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(9, 61))),
+             int(rng.integers(4, 13))) for _ in range(LM_SERVE_REQUESTS)]
+    eng = ServeEngine(api, params, n_slots=LM_SERVE_SLOTS,
+                      max_len=LM_SERVE_MAX_LEN)
+    for prompt, n_new in reqs:
+        eng.submit(prompt, n_new)
+    torch.cuda.synchronize()
+    steps, step_s = 0, []
+    t0 = time.perf_counter()
+    while eng.busy:
+        t1 = time.perf_counter()
+        eng.step()
+        step_s.append(time.perf_counter() - t1)
+        steps += 1
+    wall = time.perf_counter() - t0
+    got = {r.rid: r.generated for r in eng.finished}
+    n_tok = sum(len(g) for g in got.values())
+    if sorted(got) != list(range(len(reqs))):
+        fail(f"lm serve: finished {sorted(got)} of {len(reqs)} requests")
+    t1 = time.perf_counter()
+    for rid, (prompt, n_new) in enumerate(reqs):
+        b = _bucket(len(prompt))
+        padded = np.zeros((1, b), np.int64)
+        padded[0, b - len(prompt):] = prompt
+        with torch.inference_mode():
+            logits, cache = api.prefill(
+                params, torch.as_tensor(padded, device="cuda"),
+                max_len=LM_SERVE_MAX_LEN)
+            alone = [int(torch.argmax(logits[0]))]
+            while len(alone) < n_new:
+                logits, cache = api.decode_step(
+                    params, cache,
+                    torch.tensor([[alone[-1]]], device="cuda"))
+                alone.append(int(torch.argmax(logits[0])))
+        if alone != got[rid] or len(alone) != n_new:
+            fail(f"lm serve: request {rid} (prompt {len(prompt)}, bucket "
+                 f"{b}) served {got[rid]}, alone {alone}")
+    alone_s = time.perf_counter() - t1
+    ms = 1e3 * sum(step_s) / steps
+    log(f"[lm serve] ServeEngine over {cfg.name} ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}): {len(reqs)} requests (prompts "
+        f"{[len(p) for p, _ in reqs]}, new tokens {[n for _, n in reqs]}) "
+        f"through {LM_SERVE_SLOTS} slots, max_len {LM_SERVE_MAX_LEN}: "
+        f"{steps} steps in {wall:.3f} s, {len(reqs) / wall:.2f} requests/s, "
+        f"{n_tok / wall:.1f} tokens/s, {ms:.1f} ms a step (admission "
+        f"included); each request's tokens equal to its prefill + greedy "
+        f"decode alone ({alone_s:.2f} s); {card}")
+    return dict(requests=len(reqs), tokens=n_tok, steps=steps, wall_s=wall,
+                requests_per_s=len(reqs) / wall, tokens_per_s=n_tok / wall,
+                ms_per_step=ms)
+
+
+def lm_decode_check(label, api, params, toks, card, **fwd) -> dict:
+    """`forward` over 7 tokens, then `decode_step` of the 8th from the
+    returned state, against the full forward's logits at position 7 at
+    the reference test's tolerance (atol 0.75, rtol 0.15); then batch-2
+    decode steps timed."""
+    import numpy as np
+    import torch
+    from repro_torch.models import mamba2, rwkv6
+    cfg = api.cfg
+    forward = {"ssm": rwkv6.forward, "hybrid": mamba2.forward}[cfg.family]
+    with torch.inference_mode():
+        full, _ = forward(params, cfg, toks)
+        _, state = forward(params, cfg, toks[:, :7], **fwd)
+        dec, state = api.decode_step(params, state, toks[:, 7:8])
+        got, want = dec.cpu().numpy(), full[:, 7].cpu().numpy()
+        err = np.abs(got - want)
+        if not np.isfinite(got).all() or (
+                err > 0.75 + 0.15 * np.abs(want)).any():
+            fail(f"{label}: decode of the 8th differs from the full forward "
+                 f"(max abs diff {err.max():.4f})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LM_DECODE_STEPS):
+            dec, state = api.decode_step(params, state, toks[:, 7:8])
+        torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / LM_DECODE_STEPS
+    log(f"[{label}] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}): "
+        f"forward 7 + decode the 8th equal to the full forward (max abs "
+        f"diff {err.max():.4f}; tolerance 0.75 + 0.15|x|); batch 2 decode "
+        f"{dt * 1e3:.2f} ms a token step; {card}")
+    return dict(max_abs_err=float(err.max()), decode_ms=dt * 1e3)
+
+
+def lm_rwkv6(card) -> dict:
+    """(b) rwkv6-1.6b at its full config: 1 + 4 train steps at 2 x 256,
+    forward 7 / decode the 8th, decode ms a token."""
+    import torch
+    from repro_torch.configs import registry as configs
+    cfg = configs.get_config("rwkv6-1.6b")
+    api, model = lm_build(cfg, "rwkv6-1.6b (full config)")
+    n = sum(p.numel() for p in model.parameters())
+    b = token_batch(cfg, 2, LM_FAMILY_SEQ)
+    out = dict(params=n, decode=lm_decode_check(
+        "lm rwkv6", api, model, b["tokens"][:, :8], card))
+    out["train"] = lm_train_steps("lm rwkv6 train", api, model, b,
+                                  LM_FAMILY_STEPS, card)
+    del model, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_zamba2(card) -> dict:
+    """(c) zamba2-7b: at its full config forward 7 / decode the 8th and
+    decode ms a token; train steps at full width and depth 12 of 81."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry as configs
+    full = configs.get_config("zamba2-7b")
+    api, model = lm_build(full, "zamba2-7b (full config)")
+    n = sum(p.numel() for p in model.parameters())
+    b = token_batch(full, 2, LM_FAMILY_SEQ)
+    out = dict(params=n, decode=lm_decode_check(
+        "lm zamba2", api, model, b["tokens"][:, :8], card, max_len=16))
+    del model
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full, n_layers=LM_ZAMBA2_TRAIN_LAYERS)
+    api, model = lm_build(cfg, f"zamba2-7b train ({cfg.n_layers} of "
+                               f"{full.n_layers} layers)")
+    out["train"] = lm_train_steps("lm zamba2 train", api, model, b,
+                                  LM_FAMILY_STEPS, card)
+    del model, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_whisper(card) -> dict:
+    """(d) whisper-base at its full config: train steps on seeded frames
+    with 2 x 128 tokens; 8 cached decode steps with `enc_out`, each held
+    to the teacher-forced logits at the reference test's tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry as configs
+    from repro_torch.models import whisper
+    cfg = configs.get_config("whisper-base")
+    api, model = lm_build(cfg, "whisper-base (full config)")
+    n = sum(p.numel() for p in model.parameters())
+    b = token_batch(cfg, 2, LM_WHISPER_SEQ)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g,
+                              device="cuda").to(torch.bfloat16)
+    train = lm_train_steps("lm whisper train", api, model, b,
+                           LM_FAMILY_STEPS, card)
+    toks = b["tokens"][:, :LM_DECODE_STEPS]
+    worst = 0.0
+    with torch.inference_mode():
+        enc = whisper.encode(model, cfg, b["frames"])
+        want, _ = whisper.decode(model, cfg, toks, enc)
+        cache = api.init_decode_state(2, LM_SERVE_MAX_LEN, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(LM_DECODE_STEPS):
+            dec, cache = api.decode_step(model, cache, toks[:, i:i + 1],
+                                         enc_out=enc)
+            got, w = dec.cpu().numpy(), want[:, i].cpu().numpy()
+            err = np.abs(got - w)
+            if not np.isfinite(got).all() or (
+                    err > 0.75 + 0.15 * np.abs(w)).any():
+                fail(f"lm whisper: cached decode step {i} differs from the "
+                     f"teacher-forced logits (max abs diff {err.max():.4f})")
+            worst = max(worst, float(err.max()))
+        dt = (time.perf_counter() - t0) / LM_DECODE_STEPS
+    log(f"[lm whisper] {cfg.name} ({cfg.encoder_layers} + {cfg.n_layers} "
+        f"layers, d {cfg.d_model}, {cfg.encoder_seq} frames; {n} "
+        f"parameters): {LM_DECODE_STEPS} cached decode steps with enc_out "
+        f"equal to the teacher-forced logits (max abs diff {worst:.4f}; "
+        f"tolerance 0.75 + 0.15|x|), {dt * 1e3:.2f} ms a step with the "
+        f"check's copy; {card}")
+    del model, b, enc
+    torch.cuda.empty_cache()
+    return dict(params=n, train=train, max_abs_err=worst,
+                decode_ms=dt * 1e3)
+
+
+def phase_lm_families(results, card, hand=None):
+    """The LM side's other families and its server on the card: (a) the
+    `ServeEngine` over qwen3-4b at its full config (`phase_lm`'s build,
+    taken from `hand`, or its own when run alone), (b) rwkv6-1.6b, (c)
+    zamba2-7b, (d) whisper-base, (e) their smoke configs, the card
+    against the CPU.  Every part launches no kernel of the port (K1-K8
+    at 0)."""
+    import torch
+    from repro_torch.configs import registry as configs
+    t_phase = time.perf_counter()
+    qwen = (hand or {}).pop("qwen", None) or lm_build(
+        configs.get_config("qwen3-4b"), "qwen3-4b (full config)")
+    out, parts_s = {}, {}
+
+    def part(name, fn, *a):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out[name] = fn(*a)
+        parts_s[name] = time.perf_counter() - t0
+        require(f"lm {name}", {k: w.launches for k, w in wrappers().items()},
+                zero=tuple(KERNELS))
+    part("serve", lm_serve, card, *qwen)
+    del qwen
+    torch.cuda.empty_cache()
+    part("rwkv6", lm_rwkv6, card)
+    part("zamba2", lm_zamba2, card)
+    part("whisper", lm_whisper, card)
+    part("card_vs_cpu", lm_card_vs_cpu, card, ("ssm", "hybrid", "audio"))
+    out.update(parts_s=parts_s, phase_s=time.perf_counter() - t_phase)
+    log(f"[lm families] phase {out['phase_s']:.1f} s (by part "
+        f"{json.dumps({k: round(v, 1) for k, v in parts_s.items()})}); "
+        f"K1-K8 launched 0 times in every part; {card}")
+    results["_lm_families"] = out
 
 
 def phase_k1_shapes(results):
@@ -3768,6 +4074,12 @@ def main(argv=None):
                     "steps of gemma3-4b and olmoe-1b-7b at reduced depth, "
                     "decode on both caches, the card against the CPU, the "
                     "meta-only archs)")
+    ap.add_argument("--lm-families", action="store_true",
+                    help="only run the LM families' phase (the ServeEngine "
+                    "over a full-width qwen3-4b; rwkv6-1.6b, zamba2-7b and "
+                    "whisper-base at full width: train steps, decode "
+                    "against the forward; their smoke configs on the card "
+                    "against the CPU)")
     ap.add_argument("--chaos", action="store_true",
                     help="only run the chaos link layer's phase (Table 1 "
                     "over party processes under the gauntlet with zlib "
@@ -3850,6 +4162,12 @@ def main(argv=None):
         log(f"[done] LM phase only, {time.perf_counter() - t_start:.1f} s; "
             f"card {card}; summary {json.dumps(results['_lm'])}")
         return
+    if args.lm_families:
+        phase_lm_families(results, card)
+        log(f"[done] LM families phase only, "
+            f"{time.perf_counter() - t_start:.1f} s; card {card}; summary "
+            f"{json.dumps(results['_lm_families'])}")
+        return
     if args.paper:
         phase_paper(results, priv)
         log(f"[done] paper path only, {time.perf_counter() - t_start:.1f} "
@@ -3885,7 +4203,9 @@ def main(argv=None):
     for phase in (phase_socket, phase_chaos, phase_sharded,
                   phase_secure_dryrun):
         timed(phase, results)
-    timed(phase_lm, results, card)
+    hand = {}
+    timed(phase_lm, results, card, hand)
+    timed(phase_lm_families, results, card, hand)
     for phase in (phase_k1_shapes, phase_probe, phase_bench):
         timed(phase, results)
     summary = {k: results.pop(k) for k in list(results) if k[0] == "_"}

@@ -6,8 +6,9 @@ arrays: callers pass the reference objects' fields).
   checks every numpy field it is given against the derived one.
 * `table_from_numpy` builds the port's `FixedBaseTable` from a reference
   table's payload and identity fields, checking its header.
-* `lm_params_from_numpy` builds the port's `Transformer` from the
-  reference's `init_params` tree as nested dicts of numpy arrays.
+* `lm_params_from_numpy` builds the port's model of any LM family from
+  the reference's `init_params` tree as nested dicts (and lists) of
+  numpy arrays.
 """
 from __future__ import annotations
 
@@ -15,7 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch.crypto import fixed_base, paillier
-from repro_torch.models import transformer
+from repro_torch.models import registry
+
+#: the port's module lists that hold the reference's stacked layer axis,
+#: by the tree key of the stack
+STACKED = {"blocks": "layers", "enc_blocks": "enc_layers",
+           "dec_blocks": "dec_layers"}
 
 
 def keys_from_numpy(p: int, q: int, key_bits: int,
@@ -51,30 +57,44 @@ def table_from_numpy(table_rns: np.ndarray, *, purpose: str, n: int,
 
 
 def lm_params_from_numpy(cfg, tree: dict, device="cuda"):
-    """The port's `models.transformer.Transformer` for `cfg` holding the
-    weights of a reference `transformer.init_params` tree: nested dicts of
-    numpy arrays, bf16 leaves passed as float32 (an exact upcast).  The
-    stacked L axis of ``tree["layers"]`` is split into the blocks and each
-    weight cast back to its dtype in the port.  Every leaf must be used
-    and every shape must match; otherwise a `ValueError` is raised."""
-    model = transformer.init_params(None, cfg, device="meta")
+    """The port's model for `cfg` (`registry.build(cfg)`'s: a
+    `Transformer`, `RWKV6`, `Zamba2` or `Whisper`) holding the weights of
+    a reference `init_params` tree: nested dicts of numpy arrays, bf16
+    leaves passed as float32 (an exact upcast), zamba2's ``shared`` a
+    list of two dicts.  Each stacked L axis (``layers``, whisper's
+    ``enc_layers`` / ``dec_layers``) is split into the port's blocks
+    (`STACKED`) and each weight cast back to its dtype in the port.
+    Every leaf must be used and every shape must match; otherwise a
+    `ValueError` is raised."""
+    model = registry.build(cfg).init_params(None, device="meta")
     model = model.to_empty(device=device)
     used = set()
 
     def leaf(path):
         node = tree
         for key in path:
-            if not isinstance(node, dict) or key not in node:
+            if isinstance(node, (list, tuple)) and key.isdigit() \
+                    and int(key) < len(node):
+                node = node[int(key)]
+            elif isinstance(node, dict) and key in node:
+                node = node[key]
+            else:
                 raise ValueError(f"tree has no leaf {'/'.join(path)}")
-            node = node[key]
+        if isinstance(node, (dict, list, tuple)):
+            raise ValueError(f"tree has no leaf {'/'.join(path)}")
         used.add(tuple(path))
         return np.asarray(node)
 
     with torch.no_grad():
         for name, param in model.named_parameters():
             parts = name.split(".")
-            if parts[0] == "blocks":
-                arr = leaf(["layers"] + parts[2:])[int(parts[1])]
+            if parts[0] in STACKED:
+                stack = leaf([STACKED[parts[0]]] + parts[2:])
+                n = len(getattr(model, parts[0]))
+                if stack.shape[:1] != (n,):
+                    raise ValueError(f"{name}: {stack.shape[:1]} layers in "
+                                     f"the tree, {n} in the port")
+                arr = stack[int(parts[1])]
             else:
                 arr = leaf(parts)
             if tuple(arr.shape) != tuple(param.shape):
@@ -86,6 +106,9 @@ def lm_params_from_numpy(cfg, tree: dict, device="cuda"):
         if isinstance(node, dict):
             for k, v in node.items():
                 yield from paths(v, prefix + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                yield from paths(v, prefix + (str(i),))
         else:
             yield prefix
     extra = set(paths(tree)) - used

@@ -67,12 +67,81 @@ def zeros_param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
 
 
+def ones_param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(shape, dtype=dtype, device=device))
+
+
+def normal_param(gen, shape, dtype, device, scale: float) -> nn.Parameter:
+    """f32 standard normals times `scale`, cast to `dtype`."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.device.type != "meta":
+        t.normal_(generator=gen).mul_(scale)
+    return nn.Parameter(t.to(dtype))
+
+
+def uniform_param(gen, shape, dtype, device) -> nn.Parameter:
+    """f32 uniforms on [0, 1), cast to `dtype`."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.device.type != "meta":
+        t.uniform_(generator=gen)
+    return nn.Parameter(t.to(dtype))
+
+
+def host_param(values: np.ndarray, dtype, device) -> nn.Parameter:
+    """A parameter holding host `values` (float32, then `dtype`)."""
+    t = torch.as_tensor(np.asarray(values, np.float32)).to(dtype)
+    return nn.Parameter(t.to(device))
+
+
+def pad_to(t: torch.Tensor, length: int, dim: int) -> torch.Tensor:
+    """`t` zero-padded at the end of `dim` to `length` (never cut)."""
+    n = t.shape[dim]
+    if length <= n:
+        return t
+    shape = list(t.shape)
+    shape[dim] = length - n
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# One card's memory
+# ---------------------------------------------------------------------------
+
+CARD_BYTES = 80e9             # one H100's device memory
+
+
+def param_bytes(model: nn.Module) -> int:
+    """The bytes of a model's parameters (a meta build answers too)."""
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def build_on_card(make, cfg, device):
+    """`make(device)` where its weights fit one card: off ``meta`` the
+    model is first built on ``meta`` and its bytes reckoned, and a model
+    over one card's memory (kimi-k2, qwen2-vl-72b) raises."""
+    if torch.device(device).type != "meta":
+        need = param_bytes(make("meta"))
+        if need > CARD_BYTES:
+            raise ValueError(
+                f"{cfg.name}: {need / 1e9:.0f} GB of weights exceed one "
+                f"card's {CARD_BYTES / 1e9:.0f} GB; build it on "
+                "device='meta'")
+    return make(device)
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
              ) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + gamma.float())).to(x.dtype)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus`, log(1 + e^x) as ``logaddexp(x, 0)``: torch's
+    `F.softplus` returns x itself above its threshold of 20."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 def layer_norm(x, gamma, beta, eps):

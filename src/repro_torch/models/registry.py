@@ -1,11 +1,11 @@
-"""Uniform model API over the families — what the launcher and the
-federated head program against.
+"""Uniform model API over the four families (dense/moe/vlm decoder,
+rwkv6, zamba2 hybrid, whisper enc-dec) — what the federated head and the
+LM `serve.ServeEngine` program against.
 
-`build` covers the decoder-only transformer family (`dense`, `moe`,
-`vlm`).  The `ssm` (rwkv6), `hybrid` (zamba2) and `audio` (whisper)
-families are not ported yet (ROADMAP Queue 1, item 3b): `build` raises
-`NotImplementedError` for them.  `input_specs` answers for every family,
-with tensors on torch's ``meta`` device in place of shape structs.
+As in the reference, only the decoder family has a `prefill`; the
+others' is None.  Extras pass through `decode_step` as the reference's
+lambdas pass them (whisper's ``enc_out=``).  `input_specs` answers with
+tensors on torch's ``meta`` device in place of shape structs.
 """
 from __future__ import annotations
 
@@ -15,9 +15,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
-from repro_torch.models import transformer
-
-NOT_PORTED = ("ssm", "hybrid", "audio")
+from repro_torch.models import layers, mamba2, rwkv6, transformer, whisper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,11 +42,45 @@ def build(cfg: ModelConfig) -> ModelAPI:
             prefill=lambda p, tok, max_len, **kw: transformer.prefill(
                 p, cfg, tok, max_len, **kw),
         )
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported yet: "
-            "ROADMAP Queue 1, item 3b (rwkv6, mamba2/zamba2, whisper)")
+    if cfg.family == "ssm":
+        return ModelAPI(
+            cfg=cfg,
+            init_params=lambda gen, device="cuda": rwkv6.init_params(
+                gen, cfg, device),
+            train_loss=lambda p, b: rwkv6.train_loss(p, cfg, b),
+            init_decode_state=lambda b, s, device="cuda":
+                rwkv6.init_state(cfg, b, s, device=device),
+            decode_step=lambda p, st, tok, **kw: rwkv6.decode_step(
+                p, cfg, st, tok),
+        )
+    if cfg.family == "hybrid":
+        return ModelAPI(
+            cfg=cfg,
+            init_params=lambda gen, device="cuda": mamba2.init_params(
+                gen, cfg, device),
+            train_loss=lambda p, b: mamba2.train_loss(p, cfg, b),
+            init_decode_state=lambda b, s, device="cuda":
+                mamba2.init_state(cfg, b, s, device=device),
+            decode_step=lambda p, st, tok, **kw: mamba2.decode_step(
+                p, cfg, st, tok),
+        )
+    if cfg.family == "audio":
+        return ModelAPI(
+            cfg=cfg,
+            init_params=lambda gen, device="cuda": whisper.init_params(
+                gen, cfg, device),
+            train_loss=lambda p, b: whisper.train_loss(p, cfg, b),
+            init_decode_state=lambda b, s, device="cuda":
+                whisper.init_cache(cfg, b, s, device=device),
+            decode_step=lambda p, st, tok, enc_out=None, **kw:
+                whisper.decode_step(p, cfg, st, tok, enc_out),
+        )
     raise ValueError(f"unknown family {cfg.family}")
+
+
+def param_bytes(cfg: ModelConfig) -> int:
+    """The bytes of `cfg`'s weights, from its build on ``meta``."""
+    return layers.param_bytes(build(cfg).init_params(None, device="meta"))
 
 
 # ---------------------------------------------------------------------------

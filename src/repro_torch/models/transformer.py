@@ -23,7 +23,6 @@ from repro_torch.models import attention, layers, moe
 from repro_torch.models.attention import AttnSpec, KVCache
 
 FULL_WINDOW = 1 << 30
-CARD_BYTES = 80e9             # one H100's device memory
 
 
 def attn_spec(cfg: ModelConfig) -> AttnSpec:
@@ -83,23 +82,14 @@ class Transformer(layers.ParamModule):
                      if not cfg.tie_embeddings else None)
 
 
-def param_bytes(cfg: ModelConfig) -> int:
-    """The weights' bytes in the config's dtype, from `param_count`."""
-    return cfg.param_count() * torch.finfo(layers.dtype_of(cfg)).bits // 8
-
-
 def init_params(gen: torch.Generator | None, cfg: ModelConfig,
                 device="cuda") -> Transformer:
     """Random weights from `gen` (truncated normals, as the reference's
     init); on ``device="meta"`` shapes only, no draw.  A model whose
     weights exceed one card's memory (kimi-k2, qwen2-vl-72b) is built
-    only on ``meta``."""
-    if torch.device(device).type != "meta" and param_bytes(cfg) > CARD_BYTES:
-        raise ValueError(
-            f"{cfg.name}: {param_bytes(cfg) / 1e9:.0f} GB of weights exceed "
-            f"one card's {CARD_BYTES / 1e9:.0f} GB; build it on "
-            "device='meta'")
-    return Transformer(cfg, gen, device)
+    only on ``meta`` (`layers.build_on_card`)."""
+    return layers.build_on_card(lambda dev: Transformer(cfg, gen, dev), cfg,
+                                device)
 
 
 def _block(cfg: ModelConfig, p, x, positions, window, theta,
@@ -233,14 +223,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                         torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
-def _pad_seq(t, max_len: int):
-    S = t.shape[2]
-    if max_len <= S:
-        return t
-    pad = t.new_zeros(t.shape[:2] + (max_len - S,) + t.shape[3:])
-    return torch.cat([t, pad], dim=2)
-
-
 def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: int, vision_embeds=None):
     """Run the prompt, materialize the cache (padded to max_len)."""
@@ -250,11 +232,11 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     k, v = caches   # (L, B, S, K, hd)
     S = k.shape[2]  # may exceed max_len when vision patches are prepended
     if cfg.kv_cache_dtype == "int8":
-        kq, ks = _quant(_pad_seq(k, max_len))
-        vq, vs = _quant(_pad_seq(v, max_len))
+        kq, ks = _quant(layers.pad_to(k, max_len, 2))
+        vq, vs = _quant(layers.pad_to(v, max_len, 2))
         return logits[:, -1], StackedCacheQ(kq, vq, ks, vs, S)
-    cache = StackedCache(_pad_seq(k, max_len).to(torch.bfloat16),
-                         _pad_seq(v, max_len).to(torch.bfloat16), S)
+    cache = StackedCache(layers.pad_to(k, max_len, 2).to(torch.bfloat16),
+                         layers.pad_to(v, max_len, 2).to(torch.bfloat16), S)
     return logits[:, -1], cache
 
 

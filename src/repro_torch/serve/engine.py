@@ -1,5 +1,21 @@
-"""The secure scoring service of the federated GLM, on the trainer's
-actor/message/transport stack.
+"""Two serving engines: `ServeEngine`, continuous-batching greedy decode
+over any `models.registry` API with a `prefill`, and `VFLScoringEngine`,
+the secure scoring service of the federated GLM.
+
+`ServeEngine` (the reference's LM engine).  Requests enter and leave
+the decode batch at any step.  An admitted request's prompt is
+left-padded with 0 to a bucket (`_bucket`: 16, 32, …, 256; no mask) and
+prefilled at B = 1 into a free slot, whose cache then holds the bucket's
+length; each step decodes every active slot once (greedy `argmax`), and
+a request finishes at `max_new_tokens` tokens or on `eos_id`.  The
+reference `vmap`s one `decode_step` over the slots, each slot a B = 1
+cache with its own length; the port keeps one B = 1 cache a slot and
+decodes the active slots in turn, which computes exactly that.  The
+family check is the reference's: `ssm` and `hybrid` pass it, but their
+APIs have no `prefill`, so the first admission raises `TypeError`, as in
+the reference.
+
+`VFLScoringEngine`, on the trainer's actor/message/transport stack.
 
 Requests carry vertically split feature rows (one slice per party).  An
 admission controller (`serve.batching.MicroBatcher`) closes micro-batches
@@ -36,17 +52,17 @@ Service mode: `start()` runs the admission/scoring loop on a worker
 thread (deadline batches close without client calls; a swap is then
 applied, and its encryptions launched, from that thread); `stop()` drains
 and joins.  Synchronous use (`run()`) drains inline.
-
-The reference's LM `ServeEngine` is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint import load_checkpoint, party_checkpoint_dir
 from repro_torch.runtime import LocalTransport
@@ -54,6 +70,114 @@ from repro_torch.runtime import session as session_lib
 from repro_torch.runtime.party import LabelParty
 from repro_torch.serve.batching import MicroBatcher
 
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (prompt_len,) int32
+    max_new_tokens: int
+    generated: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _bucket(n: int, buckets=(16, 32, 64, 128, 256)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+class ServeEngine:
+    """Continuous-batching greedy decode over a `models.registry` API and
+    its params (a model on its device: the slots' caches and the tokens
+    go there)."""
+
+    def __init__(self, api, params, n_slots: int = 8, max_len: int = 512,
+                 eos_id: Optional[int] = None):
+        assert api.cfg.family in ("dense", "moe", "vlm", "ssm", "hybrid"), \
+            "engine supports decoder-style families"
+        self.api = api
+        self.params = params
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.device = next(params.parameters()).device
+        self.caches = [api.init_decode_state(1, max_len, device=self.device)
+                       for _ in range(n_slots)]
+        self.slot_req: list[Optional[Request]] = [None] * n_slots
+        self.slot_tok = np.zeros((n_slots, 1, 1), np.int32)  # (slot, B=1, 1)
+        self.queue: deque[Request] = deque()
+        self.finished: list[Request] = []
+        self._next_rid = 0
+
+    # -- client API --------------------------------------------------------
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
+        rid = self._next_rid
+        self._next_rid += 1
+        self.queue.append(Request(rid, np.asarray(prompt, np.int32),
+                                  max_new_tokens))
+        return rid
+
+    @property
+    def busy(self) -> bool:
+        return bool(self.queue) or any(r is not None for r in self.slot_req)
+
+    # -- scheduler ---------------------------------------------------------
+    def _admit(self) -> None:
+        for s in range(self.n_slots):
+            if self.slot_req[s] is not None or not self.queue:
+                continue
+            req = self.queue.popleft()
+            b = _bucket(len(req.prompt))
+            padded = np.full((1, b), 0, np.int32)
+            padded[0, b - len(req.prompt):] = req.prompt   # left-pad
+            logits, cache = self.api.prefill(
+                self.params, torch.as_tensor(padded, device=self.device),
+                max_len=self.max_len)
+            tok = int(torch.argmax(logits[0]))
+            req.generated.append(tok)
+            self.slot_req[s] = req
+            self.slot_tok[s, 0, 0] = tok
+            self.caches[s] = cache
+
+    def step(self) -> int:
+        """Admit + one decode step of every active slot.  Returns
+        #active slots."""
+        with torch.inference_mode():
+            self._admit()
+            active = [s for s in range(self.n_slots)
+                      if self.slot_req[s] is not None]
+            if not active:
+                return 0
+            last = []
+            for s in active:
+                tok = torch.as_tensor(self.slot_tok[s], device=self.device)
+                logits, self.caches[s] = self.api.decode_step(
+                    self.params, self.caches[s], tok)
+                last.append(logits[0])
+            toks = torch.argmax(torch.stack(last), dim=-1).tolist()
+        for s, tok in zip(active, toks):
+            req = self.slot_req[s]
+            req.generated.append(tok)
+            self.slot_tok[s, 0, 0] = tok
+            if (len(req.generated) >= req.max_new_tokens
+                    or (self.eos_id is not None and tok == self.eos_id)):
+                req.done = True
+                self.finished.append(req)
+                self.slot_req[s] = None
+        return len(active)
+
+    def run(self, max_steps: int = 10_000) -> list[Request]:
+        for _ in range(max_steps):
+            if not self.busy:
+                break
+            self.step()
+        return self.finished
+
+
+# ---------------------------------------------------------------------------
+# Federated GLM scoring (EFMVFL runtime-backed serving path)
+# ---------------------------------------------------------------------------
 
 class FeatureKeyError(ValueError):
     """A submitted feature dict's keys disagree with the party roster —

@@ -1,7 +1,8 @@
 """Shared inputs of the LM parity tests: the reference's and the port's
-smoke configs, seeded weights in the reference's `init_params` layout
-(as jnp arrays and as the numpy float32 tree the port takes), batches,
-and the two sides' logits, loss and gradients on them."""
+smoke configs, seeded weights in the reference's `init_params` layout of
+any family (as jnp arrays and as the numpy float32 tree the port takes),
+batches, the reference's gradient of a port parameter, and the decoder
+family's logits, loss and gradients on both sides."""
 import dataclasses
 
 import jax
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from repro.configs import registry as jconfigs
+from repro.models import registry as jmodels
 from repro.models import transformer as jtransformer
 
 from repro_torch import interop
@@ -37,7 +39,7 @@ def weights(jcfg, seed=0):
     """(reference tree of jnp arrays in the config's dtypes, the same tree
     as numpy float32) from seeded normals: weights scaled by 1/sqrt(fan
     in), the embedding unit normal, norm gains N(0, 0.1)."""
-    shapes = jax.eval_shape(lambda k: jtransformer.init_params(k, jcfg),
+    shapes = jax.eval_shape(jmodels.build(jcfg).init_params,
                             jax.random.key(0))
     rng = np.random.default_rng(seed)
 
@@ -62,23 +64,54 @@ def batch(cfg, dtype, seed=1):
     out = {"tokens": toks,
            "labels": np.where(np.arange(S) % 7 == 0, -1, toks
                               ).astype(np.int32)}
-    if cfg.family == "vlm":
-        ve = jnp.asarray(rng.normal(size=(B, cfg.vision_patches,
-                                          cfg.d_model)).astype(np.float32))
-        out["vision_embeds"] = np.asarray(ve.astype(dtype).astype(
-            jnp.float32))
+    extra = {"vlm": ("vision_embeds", cfg.vision_patches),
+             "audio": ("frames", cfg.encoder_seq)}.get(cfg.family)
+    if extra:
+        name, rows = extra
+        x = jnp.asarray(rng.normal(size=(B, rows, cfg.d_model)).astype(
+            np.float32))
+        out[name] = np.asarray(x.astype(dtype).astype(jnp.float32))
     return out
 
 
 def ref_grad_of(jgrads, name):
-    """The reference's gradient for a port parameter name."""
+    """The reference's gradient for a port parameter name: a stacked
+    layer axis (`interop.STACKED`) indexed by the block, a list (zamba2's
+    ``shared``) by its position."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        node = jgrads["layers"]
+    if parts[0] in interop.STACKED:
+        node = jgrads[interop.STACKED[parts[0]]]
         for k in parts[2:]:
             node = node[k]
         return np.asarray(node[int(parts[1])], np.float32)
-    return np.asarray(jgrads[parts[0]], np.float32)
+    node = jgrads
+    for k in parts:
+        node = node[int(k)] if isinstance(node, list) else node[k]
+    return np.asarray(node, np.float32)
+
+
+def n_port_leaves(jgrads, model) -> int:
+    """The port parameters a reference tree of gradients stands for: each
+    stacked leaf once a block, every other leaf once."""
+    n = 0
+    for path, _ in jax.tree_util.tree_leaves_with_path(jgrads):
+        key = path[0].key
+        stacks = {v: k for k, v in interop.STACKED.items()}
+        n += len(getattr(model, stacks[key])) if key in stacks else 1
+    return n
+
+
+def assert_grads_equal(jgrads, model):
+    """Every port gradient equal to the reference's at 1e-4, and one port
+    parameter for each leaf the reference's tree stands for."""
+    names = []
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        np.testing.assert_allclose(p.grad.float().numpy(),
+                                   ref_grad_of(jgrads, name),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+        names.append(name)
+    assert len(names) == n_port_leaves(jgrads, model)
 
 
 def run_both(arch, dtype, grads=True):

@@ -450,9 +450,9 @@ def test_concurrent_save_async_and_restore(tmp_path):
 def test_new_modules_import_without_jax():
     """The checkpoint, serving and wire modules (codec, socket transport,
     party server, cluster launcher, handoff plan), their benchmarks, the
-    LM side (configs, models, optimizers, token stream, the federated
-    head) and the chip smoke import with `jax`, `repro` and `ml_dtypes`
-    unimportable."""
+    LM side (configs, the models of every family, optimizers, token
+    stream, the federated head) and the chip smoke import with `jax`,
+    `repro` and `ml_dtypes` unimportable."""
     import subprocess
     code = (
         "import sys\n"
@@ -472,6 +472,8 @@ def test_new_modules_import_without_jax():
         "import repro_torch.configs.registry, repro_torch.configs.base\n"
         "import repro_torch.models.layers, repro_torch.models.attention\n"
         "import repro_torch.models.moe, repro_torch.models.transformer\n"
+        "import repro_torch.models.rwkv6, repro_torch.models.mamba2\n"
+        "import repro_torch.models.whisper\n"
         "import repro_torch.models.registry, repro_torch.optim\n"
         "import repro_torch.data.tokens, repro_torch.core.vfl_lm\n"
         "import repro_torch.interop\n"

@@ -6,12 +6,13 @@ parameter layout and `data.tokens` against the JAX package's.
   `param_count` and `active_param_count`, equal the reference's;
 * `input_specs` for every arch × shape cell: the same names, shapes and
   dtypes (meta tensors against `jax.ShapeDtypeStruct`s);
-* the port's parameters of every dense, MoE and VLM **full** config,
-  built on the meta device, carry the reference's leaves: each name and
-  shape of `jax.eval_shape(api.init_params, key)`, the stacked L axis
-  split into the blocks;
-* `registry.build` refuses the families not ported yet, naming their
-  ROADMAP item, and the archs over one card's memory build only on meta;
+* the port's parameters of every arch's **full** config, built on the
+  meta device, carry the reference's leaves: each name and shape of
+  `jax.eval_shape(api.init_params, key)`, each stacked L axis split into
+  the blocks (`interop.STACKED`), zamba2's list of shared blocks indexed;
+* `registry.build` answers for every arch with the reference's
+  `ModelAPI` fields (`prefill` None exactly where the reference's is),
+  and the archs over one card's memory build only on meta;
 * `TokenStream` gives the reference's batches across cursors and across
   a save and load of its state.
 """
@@ -27,15 +28,13 @@ from repro.configs import registry as jconfigs
 from repro.data import tokens as jtokens
 from repro.models import registry as jmodels
 
+from repro_torch import interop
 from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as tconfigs
 from repro_torch.data import tokens as ttokens
 from repro_torch.models import registry as tmodels
-from repro_torch.models import transformer as ttransformer
 
 ALL = jconfigs.list_archs() + ["gpt-100m"]
-DECODER = [a for a in ALL
-           if jconfigs.get_config(a).family in ("dense", "moe", "vlm")]
 
 
 def test_registry_lists_the_same_archs():
@@ -81,44 +80,51 @@ def test_input_specs_equal_reference():
     assert n >= len(ALL) * len(jbase.SHAPE_CELLS)
 
 
-@pytest.mark.parametrize("arch", DECODER)
+@pytest.mark.parametrize("arch", ALL)
 def test_full_config_parameters_match_reference_leaves(arch):
     jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
     shapes = jax.eval_shape(jmodels.build(jcfg).init_params,
                             jax.random.key(0))
     want = {}
     for path, leaf in jax.tree_util.tree_leaves_with_path(shapes):
-        keys = tuple(p.key for p in path)
+        keys = tuple(str(getattr(p, "key", getattr(p, "idx", None)))
+                     for p in path)
         want[keys] = (tuple(leaf.shape), str(leaf.dtype))
     model = tmodels.build(tcfg).init_params(None, device="meta")
-    got = {}
+    got, stacks = {}, {}
     for name, p in model.named_parameters():
         assert p.device.type == "meta"
         parts = name.split(".")
         dt = str(p.dtype).removeprefix("torch.")
-        if parts[0] == "blocks":
-            keys = ("layers",) + tuple(parts[2:])
+        if parts[0] in interop.STACKED:
+            keys = (interop.STACKED[parts[0]],) + tuple(parts[2:])
             got.setdefault(keys, []).append((tuple(p.shape), dt))
+            stacks[keys] = len(getattr(model, parts[0]))
         else:
             got[tuple(parts)] = (tuple(p.shape), dt)
-    L = tcfg.n_layers
-    for keys, blocks in list(got.items()):
-        if keys[0] == "layers":
-            assert len(blocks) == L and len(set(blocks)) == 1, keys
-            got[keys] = ((L,) + blocks[0][0], blocks[0][1])
+    for keys, L in stacks.items():
+        blocks = got[keys]
+        assert len(blocks) == L and len(set(blocks)) == 1, keys
+        got[keys] = ((L,) + blocks[0][0], blocks[0][1])
     assert got == want
     assert sum(p.numel() for p in model.parameters()) == sum(
         int(np.prod(s)) for s, _ in want.values())
 
 
-def test_build_refuses_the_families_not_ported_yet():
+def test_build_answers_every_arch_with_the_reference_api_fields():
     for arch in ALL:
+        want = jmodels.build(jconfigs.get_smoke_config(arch))
         cfg = tconfigs.get_smoke_config(arch)
-        if cfg.family in ("ssm", "hybrid", "audio"):
-            with pytest.raises(NotImplementedError, match="item 3b"):
-                tmodels.build(cfg)
-        else:
-            assert tmodels.build(cfg).cfg is cfg
+        got = tmodels.build(cfg)
+        assert got.cfg is cfg
+        assert [f.name for f in dataclasses.fields(got)] == [
+            f.name for f in dataclasses.fields(want)]
+        for f in dataclasses.fields(want):
+            if f.name != "cfg":
+                assert (getattr(got, f.name) is None) == (
+                    getattr(want, f.name) is None), (arch, f.name)
+        assert (got.prefill is None) == (cfg.family not in (
+            "dense", "moe", "vlm")), arch
 
 
 def test_archs_over_one_card_build_only_on_meta():
@@ -126,7 +132,17 @@ def test_archs_over_one_card_build_only_on_meta():
         api = tmodels.build(tconfigs.get_config(arch))
         with pytest.raises(ValueError, match="meta"):
             api.init_params(torch.Generator(), device="cpu")
-    assert ttransformer.param_bytes(tconfigs.get_config("qwen3-4b")) < 80e9
+    for arch in ("rwkv6-1.6b", "zamba2-7b", "whisper-base"):
+        # every family's guard: a 10^8-word vocabulary is over 100 GB
+        cfg = dataclasses.replace(tconfigs.get_config(arch),
+                                  vocab_size=10 ** 8)
+        with pytest.raises(ValueError, match="meta"):
+            tmodels.build(cfg).init_params(torch.Generator(), device="cpu")
+    # from the meta build: 4.41 B parameters in bf16
+    assert tmodels.param_bytes(tconfigs.get_config("qwen3-4b")) == 2 * sum(
+        p.numel() for p in tmodels.build(tconfigs.get_config(
+            "qwen3-4b")).init_params(None, device="meta").parameters())
+    assert tmodels.param_bytes(tconfigs.get_config("zamba2-7b")) < 80e9
 
 
 def test_token_stream_equals_reference_across_cursors_and_restore():

@@ -12,13 +12,10 @@ and gradients agree to rtol = atol = 1e-4: the two sides differ only in
 the order of f32 sums.  The configs' own bfloat16 and the KV-cache paths
 are held in `test_torch_lm_decode.py`.
 """
-import jax
 import numpy as np
 import pytest
 
-from repro_torch.configs import registry as tconfigs
-
-from _lm_parity import ref_grad_of, run_both
+from _lm_parity import assert_grads_equal, run_both
 
 F32_ARCHS = ["qwen3-4b", "gemma3-4b", "olmoe-1b-7b", "kimi-k2-1t-a32b",
              "qwen2-vl-72b"]
@@ -32,13 +29,4 @@ def test_float32_logits_loss_and_grads_equal_reference(arch):
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(float(tloss.detach()), float(jloss), rtol=1e-4,
                                atol=1e-4)
-    names = []
-    for name, p in model.named_parameters():
-        assert p.grad is not None, name
-        np.testing.assert_allclose(p.grad.float().numpy(),
-                                   ref_grad_of(jgrads, name),
-                                   rtol=1e-4, atol=1e-4, err_msg=name)
-        names.append(name)
-    per_layer = len(jax.tree.leaves(jgrads["layers"]))
-    L = tconfigs.get_smoke_config(arch).n_layers
-    assert len(names) == len(jax.tree.leaves(jgrads)) + (L - 1) * per_layer
+    assert_grads_equal(jgrads, model)
