@@ -42,8 +42,8 @@ bit for bit), and checks that every kernel of each path launched (K1
 exactly 162 times on the RNS path and 150 on path B).  Then the
 concurrent-leg schedule (`phase_pipelined`): the same configuration
 through `runtime.PipelinedTransport` at k = 2 and 4 (B1's columns
-copied to B2, B3, as Figure 2 does; at k = 4 also with barrier sweeps
-and with 2 workers), each equal to the `LocalTransport` run of its k on
+copied to B2, B3, as Figure 2 does; at k = 4 also with barrier
+sweeps), each equal to the `LocalTransport` run of its k on
 losses, weights and bytes, with K1–K3 launched exactly as often and
 K4–K8 not, fewer rounds at k = 4, K1–K3 held against their plain
 versions at every shape those runs launched; 64 rows encrypted with
@@ -84,7 +84,7 @@ the two on one card.
     python3 chip_smoke.py --lm       # only the LM phase
 
 runs only `phase_lm` (described below), ``--lm-families`` only
-`phase_lm_families`, and
+`phase_lm_families`, ``--lm-train`` only `phase_lm_train`, and
 
     python3 chip_smoke.py --paper    # only the paper's evaluation path
 
@@ -120,9 +120,10 @@ overhead, the device memory of the party contexts; the 9000 held-out
 rows scored over the cluster (`VFLScoringEngine(cluster=)`) and after a
 hot swap to the parties' step-2 checkpoints, equal to the in-process
 engine, publish and swap launching K2 and K1 in the party processes; a
-k = 3 run (B1's columns copied) whose B1 is killed at iteration 2,
-resumed by `train_vfl_socket_resilient` after one restart and equal to
-the uninterrupted run; and the wire benchmark (`python -m
+k = 3 run of 2 iterations (B1's columns copied) whose B1 is killed at
+iteration 1, resumed by `train_vfl_socket_resilient` after one restart and equal to
+the uninterrupted run (in the full run under the chaos phase's gauntlet,
+as that phase's killed run); and the wire benchmark (`python -m
 repro_torch.bench.run --only wire`, written to `BENCH_cuda_wire.json`).
 Then the chaos link layer (`phase_chaos`, also alone as ``python3
 chip_smoke.py --chaos``), every endpoint a `runtime.chaos.FaultyTransport`:
@@ -139,9 +140,11 @@ plus one a ciphertext frame decoded and then discarded as a duplicate
 at every shape launched; (b) the run under `wan20` shaping only, its
 s/iteration beside the fault-free socket run's and rounds × (latency +
 jitter / 2); (c) a k = 3 mock run whose B1 is killed at iteration 2
-under the gauntlet, equal to the uninterrupted run after one restart;
-(d) the WAN benchmark (`python -m repro_torch.bench.run --only wan`,
-written to `BENCH_cuda_wan.json`).
+under the gauntlet, equal to the uninterrupted run after one restart
+(in the full run the socket phase's Paillier kill run, under the
+gauntlet, in its place); (d) the WAN benchmark's smoke, its unshaped
+row (`python -m repro_torch.bench.run --only wan` runs every profile
+and writes `BENCH_cuda_wan.json`).
 Then the multi-device HE engine (`phase_sharded`, also alone as
 ``python3 chip_smoke.py --sharded``): a gloo world of 2 ranks on the one
 card (`launch.mesh.run_world`), each rank running the same program with
@@ -177,7 +180,8 @@ K3 matvec of the full (n, m), the ring words equal to X^T⟨d⟩ mod 2^64
 on the host, log2 of the sample axes' exchanges, K1 or K5 launched once
 a product call and held against its plain version at every shape; the
 K3 route launched twice (once a pod) and nothing else, held at its
-shape; then the report's socket resume and chaos drills and the serving
+shape; then the report's socket resume drill under the `lossy` chaos
+profile and the serving
 report (no kernel in this process), and the fixed-base table report at
 1024-bit keys (K1, K2 and K4 twice each, held at their shapes).
 Then the LM side (`phase_lm`, also alone as ``python3 chip_smoke.py
@@ -196,9 +200,10 @@ their plain versions at every shape launched (K3 at 512 × 2560);
 full forward's logits at the reference test's tolerance, on the bf16
 and the int8 cache, with decode tokens/s; (b) train steps at full width
 and reduced depth (gemma3-4b at 6 of 34 layers, olmoe-1b-7b at 2 of
-16): batch 2 × 512 from `data.tokens.TokenStream`, `train_loss`,
-backward, the global-norm clip and the config's AdamW step, the loss
-finite and lower after 4 steps on the batch, with step time and peak
+16): batch 2 × 512 from `data.tokens.TokenStream` through
+`launch.steps.make_train_step` (`train_loss`, its gradients, the
+global-norm clip and the config's AdamW step), the loss finite and
+lower after 4 steps on the batch, with step time and peak
 memory; (d) every dense, MoE and VLM smoke config in float32, the
 logits on the card within 1e-4 of the CPU's on the same weights; (e)
 kimi-k2-1t-a32b and qwen2-vl-72b built on the meta device, their
@@ -210,7 +215,7 @@ its own qwen3-4b), each part with K1-K8 launched 0 times: (a)
 slots, max_len 512, 6 seeded requests (prompts of 9-60 tokens, buckets
 16-64; 4-12 new tokens), each request's tokens equal to a prefill and
 greedy decode loop of that request alone, with requests/s, tokens/s and
-ms a step; (b) rwkv6-1.6b at its full config (24 layers, d 2048): 1 + 4
+ms a step; (b) rwkv6-1.6b at its full config (24 layers, d 2048): 1 + 2
 train steps at 2 x 256 from `TokenStream` (sequence cut from 512: the
 wkv recurrence is a loop over tokens), forward 7 and decode the 8th
 against the full forward at the reference test's tolerance, decode ms
@@ -222,6 +227,29 @@ layers, d 512, 1500 frames): train steps on seeded frames with 2 x 128
 tokens, 8 cached decode steps with `enc_out` each against the
 teacher-forced logits; (e) the three families' smoke configs in
 float32, the logits on the card within 1e-4 of the CPU's.
+Then LM training and distribution (`phase_lm_train`, also alone as
+``python3 chip_smoke.py --lm-train``), K1-K8 launched 0 times in every
+process: (a) ``python -m repro_torch.launch.train --arch gpt-100m`` at
+its full config (12 layers, d 768, vocab 32768) and the driver's batch
+8 × seq 256 in subprocesses: an uninterrupted run of 25 steps
+checkpointing every 10 beside a run killed after step 20 (exit 42),
+then ``--resume``; the two `step_25.npz` equal array for array, the
+loss lower; tokens/s, peak device memory, and the model-FLOPs share of
+the card's bf16 dense peak from `launch.costmodel`; (b) one gloo world
+of 8 ranks on cuda:0: qwen3-4b at its full config in float32 placed by
+`distributed.elastic.replace_onto_mesh` on (data, model) = (2, 4) and
+(4, 2) (the ranks build the full model in turn), prefill 4 × 8 tokens
+through DTensor under `elastic.sharded` on both, the logits within the
+reference test's bound (atol 8e-2, rtol 3e-2) of each other and of the
+unsharded
+prefill, `shard_plan`'s shard shapes differing and each rank's
+resident bytes equal to its plan's; `distributed.flash_decode` at
+gemma3-4b's decode_32k layer (B 128, S 32768, G 4, Hg 2, hd 256,
+softcap 50) with each rank's 4096-token slice of a bf16 cache built on
+the card, held against `attention.decode_attention` over the whole
+cache on 8 batch rows at 1e-5, every collective counted and none
+cache-sized; int8 error-feedback compression of a full-width gpt-100m
+gradient tree on the card equal to the CPU's bit for bit.
 Device time is the sum over the profiler's device events (a torch op's
 own event repeats its kernels' time).
 """
@@ -230,9 +258,11 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1057,14 +1087,18 @@ def k1_launch_list(label: str) -> dict:
     return shapes
 
 
-def profiled(run):
-    """`run()` under torch.profiler.  Returns (its result, device µs by
-    kernel, all device µs, the sum over all events, the events)."""
+def profiled(run, host: bool = True):
+    """`run()` under torch.profiler (host ops too, unless `host` is false:
+    then device activity only, whose tables build several times faster).
+    Returns (its result, device µs by kernel, all device µs, the sum over
+    all events, the events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         res = run()
         torch.cuda.synchronize()
     dev_us = {k: 0.0 for k in SYMBOLS}
@@ -1083,10 +1117,13 @@ def profiled(run):
     return res, dev_us, total_dev_us, summed_us, events
 
 
-def profiled_run(label: str, run) -> dict:
+def profiled_run(label: str, run, host: bool = True) -> dict:
     """`run()` under torch.profiler: device time by kernel, all device
-    time, and its share of the iterations' host time."""
-    res, dev_us, total_dev_us, summed_us, events = profiled(run)
+    time, and its share of the iterations' host time; the top host ops
+    where `host`."""
+    t0 = time.perf_counter()
+    res, dev_us, total_dev_us, summed_us, events = profiled(run, host)
+    wall = time.perf_counter() - t0
     top_dev = sorted(events, key=lambda e: -float(
         getattr(e, "self_device_time_total", 0.0) or 0.0))[:8]
     top_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
@@ -1097,15 +1134,16 @@ def profiled_run(label: str, run) -> dict:
         f"{total_dev_us / 1e3:.1f} ms = {100 * share:.1f}% of the "
         f"iterations' host time (device events only; the sum over all "
         f"events, {summed_us / 1e3:.1f} ms, counts a torch op's kernels "
-        f"twice)")
+        f"twice); the run and its tables {wall:.1f} s")
     log(f"[profile {label}] device ms by kernel " + json.dumps(
         {k: round(v / 1e3, 3) for k, v in dev_us.items() if v}))
     log(f"[profile {label}] top device ops (ms, calls): " + "; ".join(
         f"{e.key[:60]} {float(e.self_device_time_total) / 1e3:.1f} "
         f"{e.count}" for e in top_dev))
     log(f"[profile {label}] top host ops by self CPU (ms, calls): "
-        + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} "
-                    f"{e.count}" for e in top_cpu))
+        + ("; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} "
+                     f"{e.count}" for e in top_cpu) if host else
+           "not profiled here (device activity only)"))
     return dict(profiled_s_per_iter=res.runtime_s / res.n_iter,
                 n_iter=res.n_iter,
                 device_ms={k: v / 1e3 for k, v in dev_us.items() if v},
@@ -1425,9 +1463,10 @@ def phase_pipelined(results, priv):
         parties, y = fig2_parties(k)
         runs = [("local", LocalTransport), ("pipelined", PipelinedTransport)]
         if k == 4:
+            # the barrier-sweep drain; a pool of 2 workers (the same
+            # drain as the default's with fewer threads) was cut for time
             runs += [("sweeps", lambda: PipelinedTransport(
-                concurrent_legs=False)),
-                ("2 workers", lambda: PipelinedTransport(max_workers=2))]
+                concurrent_legs=False))]
         got = {}
         for name, make in runs:
             res, launches, wall, peak = counted_run(
@@ -1453,22 +1492,23 @@ def phase_pipelined(results, priv):
                 f"(host clock, iterations only), {wall:.2f} s wall; rounds "
                 f"{res.rounds}; peak device memory {peak / 2**20:.1f} MiB; "
                 f"launches {launches}")
-        # profiled over one iteration: the profiler's tables of a k = 4
-        # run take a minute to build per 3 iterations
+        # profiled over one iteration, at k = 2 only: the profiler's
+        # tables of a k = 4 iteration took 14-29 s (cut for time)
         one = dataclasses.replace(cfg, max_iter=1)
-        for name, make in runs[:2]:
+        for name, make in runs[:2] if k == 2 else ():
             prof = profiled_run(f"pipelined k={k} {name}", lambda: train_vfl(
-                parties, y, one, transport=make()))
+                parties, y, one, transport=make()), host=False)
             got[name].update(device_ms_per_iter=prof["all_device_ms"]
                              / prof["n_iter"], device_share=prof[
                                  "device_share"], device_ms=prof["device_ms"])
+        dev = {n: round(g["device_ms_per_iter"], 2) for n, g in got.items()
+               if "device_ms_per_iter" in g}
         log(f"[pipelined] k={k}: equal to the sequential run (losses, "
             f"weights, bytes by tag; K1-K3 launches "
             f"{[ref_launches[x] for x in RNS_PATH]}); s/iteration local "
             f"{got['local']['s_per_iter']:.4f}, pipelined "
             f"{got['pipelined']['s_per_iter']:.4f}; device ms an iteration "
-            f"local {got['local']['device_ms_per_iter']:.2f}, pipelined "
-            f"{got['pipelined']['device_ms_per_iter']:.2f}; rounds "
+            f"{dev or 'not profiled at this k'}; rounds "
             f"{ {n: g['rounds'] for n, g in got.items()} }")
         out[f"k{k}"] = got
     held = hold_at_shapes("pipelined", shapes)
@@ -1552,7 +1592,8 @@ def paper_table(results, mod, label: str, metric_keys):
     s = mod.setup(paper_scale=True, device="cuda")
     prof = profiled_run(label, lambda: train_vfl(
         s.parties, s.y, dataclasses.replace(s.cfg, he_backend="paillier",
-                                            max_iter=PROFILE_ITERS)))
+                                            max_iter=PROFILE_ITERS)),
+        host=False)
     it = prof["n_iter"]
     log(f"[{label}] device time {prof['all_device_ms'] / it:.2f} ms an "
         f"iteration under the profiler; by kernel an iteration " + json.dumps(
@@ -2181,7 +2222,39 @@ def stepped_run(sched):
     return sched.run(state=state), times
 
 
-def phase_socket(results):
+#: the socket phase's kill run: its iterations and the one B1 dies at
+KILL_ITERS, KILL_AT = 2, 1
+
+
+class cluster_timeline:
+    """Within the block, every `SocketCluster`'s start, train and shutdown
+    on the host clock, in call order (``.parts``: (method, seconds))."""
+
+    def __enter__(self):
+        from repro_torch.launch import cluster
+        self.parts, self._saved = [], {}
+        for name in ("start", "train", "shutdown"):
+            orig = getattr(cluster.SocketCluster, name)
+            self._saved[name] = orig
+
+            def timed(cl, *a, _orig=orig, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(cl, *a, **kw)
+                finally:
+                    self.parts.append((_name, round(time.perf_counter()
+                                                    - t0, 2)))
+            setattr(cluster.SocketCluster, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import cluster
+        for name, orig in self._saved.items():
+            setattr(cluster.SocketCluster, name, orig)
+        return False
+
+
+def phase_socket(results, kill_chaos=None):
     """The real wire on the card.  Table 1 at full width (2 parties × 12
     features, batch 2048, 1024-bit keys, fixed CPs, 3 iterations) through
     `launch.cluster.SocketCluster`, each party a spawned process with its
@@ -2194,9 +2267,12 @@ def phase_socket(results):
     the in-process engine's, `infer.wx_share` measured = analytic; a
     hot swap to the parties' step-2 checkpoints in the party processes
     (publish and swap launch K2 and K1 there), equal again.  Then
-    `train_vfl_socket_resilient` at k = 3 (B1's columns copied) with B1
-    killed at iteration 2, equal to the uninterrupted local run, one
-    restart, and the wire benchmark (`BENCH_cuda_wire.json`)."""
+    `train_vfl_socket_resilient` at k = 3 (B1's columns copied), 2
+    iterations with B1 killed at iteration 1, equal to the uninterrupted
+    local run, one
+    restart (in the full run under `kill_chaos`, the chaos phase's
+    gauntlet, whose faults it must inject and absorb: it is also that
+    phase's killed run), and the wire benchmark (`BENCH_cuda_wire.json`)."""
     import numpy as np
     from repro_torch.bench import run as bench_run
     from repro_torch.bench import tables
@@ -2322,28 +2398,39 @@ def phase_socket(results):
         f"ms; swap to step 2 + {n_swap} rows {swap_s:.3f} s; infer.wx_share "
         f"{wx[0]} B analytic = measured")
     # -- a supervised run with a kill -----------------------------------
+    # 2 iterations, B1 killed at the second (cut from 3 and the third for
+    # time: one cold iteration an attempt either way)
     k3, y3 = fig2_parties(3)
     cfg3 = VFLConfig(he_backend="paillier", checkpoint_every=1,
-                     **table1_kw())
+                     **{**table1_kw(), "max_iter": KILL_ITERS})
     ref3, _, _, _ = counted_run(lambda: VFLScheduler(k3, y3, cfg3).run())
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root, \
+            cluster_timeline() as kill_parts:
         t0 = time.perf_counter()
         res3 = train_vfl_socket_resilient(k3, y3, cfg3, checkpoint_dir=root,
-                                          kill_plan={2: "B1"})
+                                          kill_plan={KILL_AT: "B1"},
+                                          chaos=kill_chaos)
         kill_s = time.perf_counter() - t0
     require_same_model("socket kill and resume (against the uninterrupted "
                        "run)", res3, ref3)
-    if res3.restarts != 1 or res3.resume_report.get("step") != 2:
+    if res3.restarts != 1 or res3.resume_report.get("step") != KILL_AT:
         fail(f"socket kill: restarts {res3.restarts}, resume report "
              f"{res3.resume_report}")
     if dict(res3.measured_meter.by_tag) != dict(res3.meter.by_tag):
         fail("socket kill: measured bytes differ from analytic bytes")
-    log(f"[socket] k = 3, B1 killed at iteration 2: 1 restart, resumed at "
+    faults = ""
+    if kill_chaos is not None:
+        faults = (f" under the gauntlet (the chaos phase's killed run), "
+                  f"its relaunch's link layer "
+                  f"{json.dumps(require_faults_absorbed('socket kill', res3))}")
+    log(f"[socket] k = 3, {KILL_ITERS} iterations, B1 killed at iteration "
+        f"{KILL_AT}{faults}: 1 restart, resumed at "
         f"step {res3.resume_report['step']} (audit {res3.resume_report}), "
         f"equal to the uninterrupted run; {kill_s:.1f} s in all: the killed "
         f"attempt {res3.attempts_s[0]:.1f} s (to its forced teardown), the "
         f"relaunch {res3.attempts_s[1]:.1f} s (spawn to teardown; its "
-        f"iterations {[round(t, 3) for t in res3.iteration_s]})")
+        f"iterations {[round(t, 3) for t in res3.iteration_s]}); by part "
+        f"{kill_parts.parts}")
     # -- the wire benchmark ------------------------------------------------
     rows, w_launches, w_wall, _ = counted_run(
         lambda: bench_run.bench_rows("wire", smoke=False, device="cuda"))
@@ -2441,7 +2528,7 @@ def require_faults_absorbed(label: str, res) -> dict:
     return total
 
 
-def phase_chaos(results):
+def phase_chaos(results, kill=True):
     """The chaos link layer on the card (`runtime.chaos.FaultyTransport`
     on every endpoint).  References: the local run on the card and the
     fault-free socket run at Table 1 width (2 parties × 12 features,
@@ -2456,7 +2543,9 @@ def phase_chaos(results):
     only: s/iteration beside the fault-free socket run and rounds ×
     (latency + jitter / 2).  (c) k = 3 mock, B1 killed at iteration 2,
     under the gauntlet: equal to the uninterrupted run after one
-    restart.  (d) the WAN benchmark (`BENCH_cuda_wan.json`)."""
+    restart; with `kill` false (the full run) `phase_socket`'s Paillier
+    kill run, under the gauntlet there, takes its place.  (d) the WAN
+    benchmark's smoke (its unshaped row)."""
     import dataclasses
     from repro_torch.bench import run as bench_run
     from repro_torch.bench import tables
@@ -2560,33 +2649,45 @@ def phase_chaos(results):
         f"; link layer {json.dumps(tb)}; duplicate ciphertext decodes "
         f"{cb['frames'].get('dup_ct', 0)}")
     # -- (c) a killed run under the gauntlet (mock, k = 3) -----------------
-    k3, y3 = fig2_parties(3)
-    cfg3 = VFLConfig(he_backend="mock", checkpoint_every=1, **table1_kw())
-    ref3 = VFLScheduler(k3, y3, cfg3).run()
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
-        t0 = time.perf_counter()
-        res_c = train_vfl_socket_resilient(k3, y3, cfg3, checkpoint_dir=root,
-                                           kill_plan={2: "B1"},
-                                           chaos=gauntlet)
-        kill_s = time.perf_counter() - t0
-    require_same_model("chaos (c): killed under the gauntlet (against the "
-                       "uninterrupted run)", res_c, ref3)
-    if res_c.restarts != 1 or res_c.resume_report.get("step") != 2:
-        fail(f"chaos (c): restarts {res_c.restarts}, resume report "
-             f"{res_c.resume_report}")
-    if dict(res_c.measured_meter.by_tag) != dict(res_c.meter.by_tag):
-        fail("chaos (c): measured bytes differ from analytic bytes")
-    tc = require_faults_absorbed("chaos (c)", res_c)
-    log(f"[chaos] (c) k = 3 mock, B1 killed at iteration 2 under the "
-        f"gauntlet: 1 restart, resumed at step 2, equal to the "
-        f"uninterrupted run; {kill_s:.1f} s in all (attempts "
-        f"{[round(t, 1) for t in res_c.attempts_s]} s; relaunch "
-        f"iterations {[round(t, 3) for t in res_c.iteration_s]}); the "
-        f"relaunch's link layer {json.dumps(tc)}")
+    kill_s, res_c, tc = None, None, None
+    if not kill:
+        log("[chaos] (c) the killed run under the gauntlet ran in "
+            f"phase_socket (k = 3 Paillier, B1 killed at iteration "
+            f"{KILL_AT})")
+    else:
+        k3, y3 = fig2_parties(3)
+        cfg3 = VFLConfig(he_backend="mock", checkpoint_every=1, **table1_kw())
+        ref3 = VFLScheduler(k3, y3, cfg3).run()
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as root, \
+                cluster_timeline() as kill_parts:
+            t0 = time.perf_counter()
+            res_c = train_vfl_socket_resilient(k3, y3, cfg3, checkpoint_dir=root,
+                                               kill_plan={2: "B1"},
+                                               chaos=gauntlet)
+            kill_s = time.perf_counter() - t0
+        require_same_model("chaos (c): killed under the gauntlet (against the "
+                           "uninterrupted run)", res_c, ref3)
+        if res_c.restarts != 1 or res_c.resume_report.get("step") != 2:
+            fail(f"chaos (c): restarts {res_c.restarts}, resume report "
+                 f"{res_c.resume_report}")
+        if dict(res_c.measured_meter.by_tag) != dict(res_c.meter.by_tag):
+            fail("chaos (c): measured bytes differ from analytic bytes")
+        tc = require_faults_absorbed("chaos (c)", res_c)
+        log(f"[chaos] (c) k = 3 mock, B1 killed at iteration 2 under the "
+            f"gauntlet: 1 restart, resumed at step 2, equal to the "
+            f"uninterrupted run; {kill_s:.1f} s in all (attempts "
+            f"{[round(t, 1) for t in res_c.attempts_s]} s; relaunch "
+            f"iterations {[round(t, 3) for t in res_c.iteration_s]}; by part "
+            f"{kill_parts.parts}); the relaunch's link layer {json.dumps(tc)}")
     # -- (d) the WAN benchmark ------------------------------------------------
     t0 = time.perf_counter()
-    report = bench_run.bench_wan(smoke=False, device="cuda")
+    with cluster_timeline() as wan_parts:
+        # the benchmark's smoke (its unshaped row): (b) runs the shaped
+        # link on Table 1; `bench.run --only wan` runs every profile
+        report = bench_run.bench_wan(smoke=True, device="cuda")
     wan_s = time.perf_counter() - t0
+    log(f"[chaos] (d) the WAN benchmark {wan_s:.1f} s; its clusters by part "
+        f"{wan_parts.parts}")
     base_it = steady(report["rows"][0]["iteration_s"])
     for r in report["rows"]:
         p = PROFILES.get(r["profile"], PROFILES["off"])
@@ -2615,7 +2716,8 @@ def phase_chaos(results):
                          gauntlet=fa.get("ct_decodes_s", 0.0)),
         enc_d_deflated=fa.get("EncD_deflated", 0),
         enc_d_sent=fa.get("EncD_sent", 0),
-        kill_run_s=kill_s, kill_attempts_s=res_c.attempts_s,
+        kill_run_s=kill_s,
+        kill_attempts_s=None if res_c is None else res_c.attempts_s,
         wan_bench_s=wan_s,
         wan_rows={r["name"]: dict(measured_s=r["measured_s"],
                                   analytic_comm_s=r["analytic_comm_s"],
@@ -2849,7 +2951,7 @@ def sharded_rank(run_cios: bool) -> dict:
                     out["mem_used_mib"] = gpu_mem_used_mib()
                 out["reserved_bytes"] = torch.cuda.max_memory_reserved()
                 _, dev_us, total_us, _, _ = profiled(
-                    lambda: sharded_table1(eng, keys, iters=1))
+                    lambda: sharded_table1(eng, keys, iters=1), host=False)
                 out["profile"] = dict(
                     all_device_ms=total_us / 1e3,
                     device_ms={k: v / 1e3 for k, v in dev_us.items() if v})
@@ -2945,7 +3047,7 @@ def phase_sharded(results):
                                    shapes=path_shapes())
             if pipeline == "rns":
                 _, _, total_us, _, _ = profiled(
-                    lambda: sharded_table1(eng, keys, iters=1))
+                    lambda: sharded_table1(eng, keys, iters=1), host=False)
                 local["device_ms"] = total_us / 1e3
     mem_before = gpu_mem_used_mib()
     ranks = mesh_lib.run_world(sharded_rank, WORLD, "cuda", (True,),
@@ -3045,6 +3147,9 @@ DRYRUN_MESH = "2x2x2"
 #: (shard mode, window, pinned pipeline) of the dry-run phase, one world
 DRYRUN_CONFIGS = (("feature", 4, None), ("sample2d", 4, None),
                   ("feature", 1, None), ("feature", 4, "cios"))
+#: the configurations that also run a warm step under the profiler (the
+#: others' second step would check nothing new: one cold step each)
+DRYRUN_WARM = (("feature", 4, None),)
 #: the per-rank analytic counts at 30720 x 32, 2048-bit n², window 4
 DRYRUN_ANALYTIC = {"feature": 1690096, "sample2d": 1583104}
 
@@ -3058,9 +3163,9 @@ def dryrun_rank(specs):
     import torch.distributed as dist
     from repro_torch.launch import secure_dryrun
     out = []
-    for spec in specs:
+    for spec, cfg in zip(specs, DRYRUN_CONFIGS):
         reset_counts()
-        r = secure_dryrun._rank_step(spec)
+        r = secure_dryrun._rank_step(dict(spec, warm=cfg in DRYRUN_WARM))
         r["launches"] = {k: w.launches for k, w in wrappers().items()}
         r["shapes"] = path_shapes()
         if not out:
@@ -3145,9 +3250,10 @@ def phase_secure_dryrun(results):
                mem_before_mib=mem_before, runs=[],
                route_launches=route_launches["rns_he_matvec"])
     k1_shapes = {}
-    for args, (ranks, first) in zip(configs, worlds):
+    for cfg, args, (ranks, first) in zip(DRYRUN_CONFIGS, configs, worlds):
         label = (f"secure dry-run {args.shard_mode} window {args.window} "
                  f"{args.pipeline}")
+        steps = 2 if cfg in DRYRUN_WARM else 1
         rep = sd.report(args, ranks, first)
         n_loc, m_loc, ladder = sd.local_shape(
             args.dims, args.samples, args.features, args.shard_mode)
@@ -3174,7 +3280,7 @@ def phase_secure_dryrun(results):
             fail(f"{label}: collectives {rep['collectives']}")
         kernel = "montmul" if args.pipeline == "cios" else "rns_montmul"
         for r in ranks:
-            calls = 2 * sum(r["montmul_calls"].values())
+            calls = steps * sum(r["montmul_calls"].values())
             require(f"{label} rank {r['coord']}", r["launches"],
                     positive=[kernel],
                     zero=[k for k in KERNELS if k != kernel],
@@ -3210,10 +3316,12 @@ def phase_secure_dryrun(results):
             f"= X^T<d> mod 2^64; products a rank {issued} = analytic "
             f"{rep['montmuls_per_dev']} - {levels} x {m_loc}; "
             f"{kernel} {ranks[0]['launches'][kernel]} launches a rank "
-            f"(2 steps); collectives {json.dumps(rep['collectives'])}; "
-            f"first step {rep['first_step_s']:.2f} s, warm step "
+            f"({steps} step{'s' if steps > 1 else ''}); collectives "
+            f"{json.dumps(rep['collectives'])}; first step "
+            f"{rep['first_step_s']:.2f} s, "
+            f"{'warm step' if steps > 1 else 'its step'} "
             f"{rep['step_s']:.3f} s (slowest rank), device s a rank "
-            f"{[round(v, 4) for v in rep['measured']['device_s_per_rank']]}"
+            f"{[v if v is None else round(v, 4) for v in rep['measured']['device_s_per_rank']]}"
             f", collective s a rank "
             f"{[round(v, 4) for v in rep['measured']['collective_s_per_rank']]}"
             f", peak {rep['peak_bytes_per_dev'] / 2**20:.0f} MiB a rank; "
@@ -3231,12 +3339,13 @@ def phase_secure_dryrun(results):
     t_drills = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="sd-") as tmp:
         # mock HE here; the socket runs' parties are processes of their own
-        (drills, serving), d_launches, _, _ = counted_run(lambda: ({
-            "resume": sd.measured_comm(
+        # the resume drill under the `lossy` profile: one drill answers
+        # both the `--resume` and the `--chaos` blocks of the report
+        (drill, serving), d_launches, _, _ = counted_run(lambda: (
+            sd.measured_comm(
                 "socket", args0.features, args0.key_bits,
-                checkpoint_dir=os.path.join(tmp, "ck"), resume_drill=True),
-            "chaos": sd.measured_comm("socket", args0.features,
-                                      args0.key_bits, chaos="lossy")},
+                checkpoint_dir=os.path.join(tmp, "ck"), resume_drill=True,
+                chaos="lossy"),
             sd.serving_report()))
         require("secure dry-run measured_comm and serving", d_launches,
                 zero=KERNELS)
@@ -3261,23 +3370,21 @@ def phase_secure_dryrun(results):
             {f"tables {sh}": n for sh, n in t_shapes[k].items()})
     results.setdefault("rns_he_matvec", {})["dryrun_launches"] = {
         f"route {sh[:4]}": n for sh, n in route_shapes["rns_he_matvec"].items()}
-    ck = drills["resume"]["checkpoint"]
+    ck = drill["checkpoint"]
     if ck.get("resume_verdict") != "bit_identical" \
-            or not drills["resume"]["matches_analytic"]:
-        fail(f"secure dry-run resume drill: {json.dumps(drills['resume'])}")
-    if drills["chaos"]["chaos"]["chaos_verdict"] != "recovered_bit_exact":
-        fail(f"secure dry-run chaos drill: {json.dumps(drills['chaos'])}")
+            or not drill["matches_analytic"] \
+            or drill["chaos"]["chaos_verdict"] != "recovered_bit_exact":
+        fail(f"secure dry-run resume drill under chaos: {json.dumps(drill)}")
     if serving["serve_verdict"] != "bit_identical" or not serving["wire_ok"]:
         fail(f"secure dry-run serving report: {json.dumps(serving)}")
-    log(f"[secure dry-run] measured_comm socket + resume: "
-        f"{json.dumps(drills['resume'])}")
-    log(f"[secure dry-run] measured_comm socket + chaos lossy: "
-        f"{json.dumps(drills['chaos'])}")
+    log(f"[secure dry-run] measured_comm socket + resume drill under "
+        f"chaos lossy: {json.dumps(drill)}")
     log(f"[secure dry-run] serving: {json.dumps(serving)}")
     log(f"[secure dry-run] fixed-base tables at 1024-bit keys: "
         f"{json.dumps(tables_rep)}; the report blocks "
         f"{time.perf_counter() - t_drills:.1f} s")
-    out.update(world_s=t_world, checks_s=t_checks, drills=drills, serving=serving, tables=tables_rep,
+    out.update(world_s=t_world, checks_s=t_checks, drill=drill,
+               serving=serving, tables=tables_rep,
                held_at_shapes=held, phase_s=time.perf_counter() - t_phase)
     results["_secure_dryrun"] = out
 
@@ -3389,7 +3496,8 @@ def lm_head(results, card, api, params) -> dict:
     log(f"[lm head] held in {hold_s:.1f} s")
     prof = profiled_run("lm head", lambda: vfl_lm.train_federated_head(
         parties, y, VFLConfig(he_backend="paillier",
-                              **{**kw, "max_iter": PROFILE_ITERS}))[0])
+                              **{**kw, "max_iter": PROFILE_ITERS}))[0],
+        host=False)
     k3 = lm_head_k3(card, [s for s in shapes["rns_he_matvec"]
                            if s[1] == cfg.d_model])
     results["rns_he_matvec"]["lm_head"] = k3
@@ -3485,37 +3593,29 @@ def lm_decode(card, api, params) -> dict:
 
 
 def lm_train_steps(label, api, model, b, steps: int, card) -> dict:
-    """`steps` train steps on the batch `b`: `train_loss`, backward, the
-    global-norm clip and the config's AdamW step; the loss finite and
+    """`steps` train steps on the batch `b` through the port's
+    `launch.steps.make_train_step` (`train_loss`, its gradients, the
+    global-norm clip and the config's AdamW step); the loss finite and
     lower after the steps.  Step time (after the first) and peak device
     memory."""
     import torch
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.optim import clip_by_global_norm, make_optimizer
+    from repro_torch.launch.steps import make_train_step
     tc = TrainConfig()
     cfg = api.cfg
-    opt = make_optimizer(cfg.optimizer, weight_decay=tc.weight_decay)
-    named = dict(model.named_parameters())
-    state = opt.init(named)
+    opt, train_step = make_train_step(api, tc)
+    state = opt.init(dict(model.named_parameters()))
     losses, times, mallocs = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(steps):
         mallocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0))
         t0 = time.perf_counter()
-        loss = api.train_loss(model, b)
-        loss.backward()
-        grads, norm = clip_by_global_norm(
-            {k: p.grad for k, p in named.items()}, tc.grad_clip)
-        new, state = opt.update(grads, state, named, tc.lr)
-        with torch.no_grad():
-            for k, p in named.items():
-                p.copy_(new[k])
-                p.grad = None
+        loss, _, model, state = train_step(model, state, b)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        losses.append(float(loss.detach()))
-    del new, grads, state
+        losses.append(float(loss))
+    del state
     with torch.no_grad():
         end = float(api.train_loss(model, b))
     peak = torch.cuda.max_memory_allocated()
@@ -3704,8 +3804,9 @@ def phase_lm(results, card, hand=None):
 
 #: (prompt lengths, new tokens) of the served requests: 6 > 3 slots
 LM_SERVE_SLOTS, LM_SERVE_MAX_LEN, LM_SERVE_REQUESTS = 3, 512, 6
-#: the families' train batches and steps (the first step is the warm-up)
-LM_FAMILY_SEQ, LM_WHISPER_SEQ, LM_FAMILY_STEPS = 256, 128, 5
+#: the families' train batches and steps (the first step is the warm-up;
+#: 1 + 2, cut from 1 + 4 for time: the loss falls within 2)
+LM_FAMILY_SEQ, LM_WHISPER_SEQ, LM_FAMILY_STEPS = 256, 128, 3
 #: zamba2's train steps at full width and this depth (two shared
 #: applications, one of each shared block); full depth does not fit
 LM_ZAMBA2_TRAIN_LAYERS = 12
@@ -3810,7 +3911,7 @@ def lm_decode_check(label, api, params, toks, card, **fwd) -> dict:
 
 
 def lm_rwkv6(card) -> dict:
-    """(b) rwkv6-1.6b at its full config: 1 + 4 train steps at 2 x 256,
+    """(b) rwkv6-1.6b at its full config: 1 + 2 train steps at 2 x 256,
     forward 7 / decode the 8th, decode ms a token."""
     import torch
     from repro_torch.configs import registry as configs
@@ -3934,6 +4035,623 @@ def phase_lm_families(results, card, hand=None):
         f"{json.dumps({k: round(v, 1) for k, v in parts_s.items()})}); "
         f"K1-K8 launched 0 times in every part; {card}")
     results["_lm_families"] = out
+
+
+# ---------------------------------------------------------------------------
+# LM training and distribution: the training CLI with resumable
+# checkpoints, and an 8-rank world on the card for the sharding rules,
+# elastic resharding, flash-decode and int8 error-feedback compression
+# ---------------------------------------------------------------------------
+
+#: the CLI run: gpt-100m at its full config and the driver's defaults
+#: (batch 8 x seq 256); steps, checkpoint cadence and the killed step
+LM_CLI_STEPS, LM_CLI_EVERY, LM_CLI_DIE = 25, 10, 20
+#: free bytes a memory-backed directory needs to hold the CLI runs'
+#: checkpoints (2 runs x keep 3 x 1.54 GB)
+LM_CLI_SHM_BYTES = 12e9
+#: an H100 SXM's dense bf16 tensor-core peak, FLOP/s (NVIDIA data sheet)
+BF16_DENSE_FLOPS = 989e12
+#: the world of the mesh checks: ranks on cuda:0, the two meshes
+LM_WORLD, LM_MESHES = 8, ((2, 4), (4, 2))
+#: qwen3-4b in the elastic check: all 36 layers at full width, in
+#: float32.  In the config's bf16 the sharded prefill differs from the
+#: unsharded by 0.1035 at this depth (each sharded projection rounds its
+#: partial products to bf16 before their sum), past the reference test's
+#: bound, which it set for its 2-layer smoke config.
+LM_ELASTIC_LAYERS, LM_ELASTIC_DTYPE = 36, "float32"
+#: the prefill of the elastic check: (batch, tokens) at max_len 16
+LM_ELASTIC_TOKENS, LM_ELASTIC_MAX_LEN = (4, 8), 16
+#: the flash-decode layer: gemma3-4b at decode_32k (B, S, G, Hg, hd,
+#: softcap), the filled length, and the batch rows held against the full
+#: cache
+LM_FLASH = (128, 32768, 4, 2, 256, 50.0)
+LM_FLASH_LENGTH, LM_FLASH_CHECK_ROWS = 30001, 8
+
+
+def lm_cli(argv: list, log_to: Path):
+    """Start `python -m repro_torch.launch.train <argv>` in a subprocess
+    that prints its kernel launch counts at its exit; returns (the
+    process, a function that waits for it and gives (exit code, output,
+    counts))."""
+    code = (
+        "import atexit, json, runpy, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke\n"
+        "atexit.register(lambda: print('[counts] ' + json.dumps(\n"
+        "    {k: w.launches for k, w in chip_smoke.wrappers().items()}),\n"
+        "    flush=True))\n"
+        f"sys.argv = ['repro_torch.launch.train'] + {argv!r}\n"
+        "runpy.run_module('repro_torch.launch.train', run_name='__main__',\n"
+        "                 alter_sys=True)\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+    def wait():
+        try:
+            out, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log_to.write_text(out)
+        counts = {}
+        for line in out.splitlines():
+            if line.startswith("[counts] "):
+                counts = json.loads(line[len("[counts] "):])
+        return proc.returncode, out, counts, time.perf_counter() - t0
+    return proc, wait
+
+
+def _cli_times(out: str) -> str:
+    import re
+    m = re.search(r"\[time\] (.*)", out)
+    return m.group(1) if m else "n/a"
+
+
+def lm_train_cli(card):
+    """(a) gpt-100m at its full config through the CLI, as a user runs
+    it: an uninterrupted run of LM_CLI_STEPS steps checkpointing every
+    LM_CLI_EVERY beside a run killed after LM_CLI_DIE (exit 42), then
+    ``--resume``, on a thread: the pair runs to its end here, the
+    resume is left running (the world of (b) runs meanwhile).  Returns
+    (a function that waits for them and checks: the final checkpoints
+    equal array for array, the loss lower; tokens/s and peak device
+    memory of the uninterrupted run, and the model-FLOPs share of the
+    card's bf16 peak by the cost model; a function that kills whichever
+    of them still runs)."""
+    import re
+
+    import numpy as np
+    from repro_torch.configs import registry as configs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import costmodel
+    cfg = configs.get_config("gpt-100m")
+    batch, seq = 8, 256
+    # the checkpoints in memory where there is room: the phase times the
+    # driver, not the disk
+    shm = Path("/dev/shm")
+    in_memory = shm.is_dir() and \
+        shutil.disk_usage(shm).free >= LM_CLI_SHM_BYTES
+    root = Path(tempfile.mkdtemp(prefix="lm-train-",
+                                 dir=shm if in_memory else None))
+    logs = ROOT / "build" / "lm_train_logs"       # each process's output
+    logs.mkdir(parents=True, exist_ok=True)
+    common = ["--arch", "gpt-100m", "--batch", str(batch), "--seq",
+              str(seq), "--steps", str(LM_CLI_STEPS), "--ckpt-every",
+              str(LM_CLI_EVERY), "--log-every", "5"]
+    # the uninterrupted and the killed run side by side on the card, then
+    # the resume, on a thread of their own: the pair before the world of
+    # (b), the resume beside it
+    procs, runs, pair_done = [], {}, threading.Event()
+
+    def sequence():
+        t0 = time.perf_counter()
+        p, wait_full = lm_cli(common + ["--ckpt-dir", str(root / "full")],
+                              logs / "lm_train_full.log")
+        procs.append(p)
+        p, wait_die = lm_cli(common + ["--ckpt-dir", str(root / "fail"),
+                                       "--die-at-step", str(LM_CLI_DIE)],
+                             logs / "lm_train_die.log")
+        procs.append(p)
+        try:
+            runs["full"], runs["die"] = wait_full(), wait_die()
+            runs["pair_s"] = time.perf_counter() - t0
+        finally:
+            pair_done.set()
+        if runs["full"][0] == 0 and runs["die"][0] == 42:
+            # the killed run's last checkpoint may be torn (the kill does
+            # not wait for its writer thread): the resume takes the newest
+            # valid one
+            p, wait_res = lm_cli(common + ["--ckpt-dir", str(root / "fail"),
+                                           "--resume"],
+                                 logs / "lm_train_resume.log")
+            procs.append(p)
+            runs["resume"] = wait_res()
+    thread = threading.Thread(target=sequence, name="lm-train-cli",
+                              daemon=True)
+    thread.start()
+    pair_done.wait()
+
+    def stop():
+        for p in list(procs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def finish() -> dict:
+        thread.join()
+        rc_full, full_out, c_full, s_full = runs["full"]
+        rc, die_out, c_die, s_die = runs["die"]
+        if rc_full != 0:
+            fail(f"lm train cli: the uninterrupted run exited {rc_full}: "
+                 f"{full_out[-2000:]}")
+        if rc != 42:
+            fail(f"lm train cli: the killed run exited {rc}, not 42: "
+                 f"{die_out[-2000:]}")
+        rc, res_out, c_res, s_res = runs["resume"]
+        resumed = re.search(r"\[resume\] from step (\d+)", res_out)
+        if rc != 0 or not resumed or not \
+                LM_CLI_EVERY <= int(resumed.group(1)) <= LM_CLI_DIE:
+            fail(f"lm train cli: the resumed run exited {rc} or did not "
+                 f"resume from a checkpoint of the killed run: "
+                 f"{res_out[-2000:]}")
+        resumed_at = int(resumed.group(1))
+        for label, c in (("full", c_full), ("die", c_die),
+                         ("resume", c_res)):
+            if any(c.get(k) for k in KERNELS) or not c:
+                fail(f"lm train cli ({label}): kernel counts {c}")
+        name = f"step_{LM_CLI_STEPS}.npz"
+        a, b = np.load(root / "full" / name), np.load(root / "fail" / name)
+        if sorted(a.files) != sorted(b.files):
+            fail("lm train cli: the two final checkpoints hold different "
+                 "leaves")
+        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        if differ:
+            fail(f"lm train cli: {len(differ)} of {len(a.files)} leaves "
+                 f"differ after the resume, first {differ[:3]}")
+        n_leaves = len(a.files)
+        ckpt_bytes = (root / "full" / name).stat().st_size
+        done = re.search(r"\[done\] steps=(\d+) first=([\d.]+) "
+                         r"final=([\d.]+)", full_out)
+        first, final = float(done.group(2)), float(done.group(3))
+        if not (math.isfinite(final) and final < first):
+            fail(f"lm train cli: the loss did not fall: {first} -> {final}")
+        rate = re.search(r"\[rate\] ([\d.]+) ms/step \(median after the "
+                         r"first\), ([\d.]+) tokens/s; peak device memory "
+                         r"([\d.]+) GiB", full_out)
+        step_ms, tok_s, peak_gib = (float(rate.group(i)) for i in (1, 2, 3))
+        cell = ShapeCell("gpt-100m-cli", seq, batch, "train")
+        knobs = costmodel.CostKnobs(train_remat=cfg.remat)
+        fwd = costmodel.forward_flops_total(cfg, cell, knobs)
+        mult = 4.0 if cfg.remat else 3.0
+        step_flops = costmodel.cell_costs(cfg, cell, {"data": 1, "model": 1}
+                                          )["flops_per_dev"]
+        if abs(step_flops - fwd * mult) > 1e-6 * step_flops:
+            fail(f"lm train cli: cell_costs' {step_flops} FLOPs a step "
+                 f"against forward x {mult} = {fwd * mult}")
+        mfu = step_flops / (step_ms * 1e-3) / BF16_DENSE_FLOPS
+        shutil.rmtree(root, ignore_errors=True)
+        log(f"[lm train cli] python -m repro_torch.launch.train --arch "
+            f"gpt-100m (12 layers, d 768, vocab 32768; full config), batch "
+            f"{batch} x seq {seq}, {LM_CLI_STEPS} steps, checkpoint every "
+            f"{LM_CLI_EVERY} ({'in memory' if in_memory else 'on disk'}): "
+            f"loss {first:.4f} -> {final:.4f}; killed after step "
+            f"{LM_CLI_DIE} (exit 42) and resumed from step {resumed_at}: "
+            f"step_{LM_CLI_STEPS}.npz equal array for array ({n_leaves} "
+            f"leaves, {ckpt_bytes} bytes); the uninterrupted run (beside "
+            f"the killed one) {step_ms:.2f} ms/step "
+            f"(median after the "
+            f"first) = {tok_s:.1f} tokens/s, peak device memory "
+            f"{peak_gib:.3f} GiB; model FLOPs {step_flops:.4e} a step "
+            f"(costmodel forward {fwd:.4e} x {mult:g}) = {mfu * 100:.2f}% "
+            f"of the {BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak; "
+            f"K1-K8 launched 0 times in each process; processes "
+            f"uninterrupted {s_full:.1f} s ({_cli_times(full_out)}), "
+            f"killed {s_die:.1f} s, resumed {s_res:.1f} s beside the world "
+            f"({_cli_times(res_out)}); the pair {runs['pair_s']:.1f} s; "
+            f"deterministic algorithms on; {card}")
+        return dict(first_loss=first, final_loss=final, leaves=n_leaves,
+                    resumed_at=resumed_at, step_ms=step_ms,
+                    tokens_per_s=tok_s, peak_gib=peak_gib,
+                    step_flops=step_flops, mfu=mfu, pair_s=runs["pair_s"],
+                    resume_s=s_res)
+    return finish, stop
+
+
+def _rank_sync():
+    import torch
+    import torch.distributed as dist
+    torch.cuda.synchronize()
+    dist.barrier()
+
+
+def lm_elastic_rank(cfg, meshes) -> dict:
+    """The elastic check on one rank: ranks in turn build the full model
+    on the card from the seeded generator (one full build at a time: 8
+    would not fit), place it on both meshes (`replace_onto_mesh`) and
+    free it; rank 0 also keeps the unsharded prefill.  Then each mesh's
+    sharded prefill (DTensor's sharding propagation under
+    `elastic.sharded`: plain inputs as replicated, DTensor's collectives
+    staged through host copies over gloo), its shard plan and this
+    rank's resident bytes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import registry as models
+    rank = dist.get_rank()
+    api = models.build(cfg)
+    gen_toks = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, LM_ELASTIC_TOKENS,
+                         generator=gen_toks, dtype=torch.int32).cuda()
+    dms = {shape: mesh_lib.make_mesh(shape, ("data", "model"))
+           for shape in meshes}
+    placed, out, t = {}, {}, {}
+    t0 = time.perf_counter()
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            full = api.init_params(gen, device="cuda")
+            for shape, dm in dms.items():
+                placed[shape] = elastic.replace_onto_mesh(full, dm)
+            if rank == 0:
+                with torch.no_grad():
+                    out["unsharded"] = api.prefill(
+                        full, toks, LM_ELASTIC_MAX_LEN)[0].float().cpu(
+                    ).numpy()
+            del full
+            torch.cuda.empty_cache()
+        _rank_sync()
+    t["build_place_s"] = time.perf_counter() - t0
+    meta = api.init_params(None, device="meta")
+    for shape, dm in dms.items():
+        model = placed[shape]
+        plain_params = [n for n, p in model.named_parameters()
+                          if not hasattr(p, "to_local")]
+        if plain_params:
+            raise RuntimeError(f"{shape}: parameters not placed: "
+                               f"{plain_params[:3]}")
+        on_card = all(p.to_local().is_cuda for p in model.parameters())
+        plan = elastic.shard_plan(meta, dm)
+        resident = elastic.resident_bytes(model)
+        planned = sum(row["bytes_per_shard"] for row in plan.values())
+        _rank_sync()
+        elastic.boundaries.clear()
+        t0 = time.perf_counter()
+        with torch.no_grad(), elastic.sharded():
+            logits, cache = api.prefill(model, toks, LM_ELASTIC_MAX_LEN)
+            full_logits = (logits.full_tensor() if hasattr(
+                logits, "full_tensor") else logits)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        local_logits = logits.to_local() if hasattr(logits, "to_local") \
+            else logits
+        out[shape] = dict(
+            logits=(full_logits.float().cpu().numpy() if rank == 0
+                    else None),
+            logits_placements=str(getattr(logits, "placements", None)),
+            local_logits_shape=list(local_logits.shape),
+            resident=resident, planned=planned, on_card=on_card,
+            prefill_s=dt, boundaries=dict(elastic.boundaries),
+            wq=plan["layers/attn/wq"],
+            stack_sharded=len(sharding.stack_sharded(meta, dm)),
+            plan_leaves=len(plan))
+        del logits, cache, full_logits
+    del placed
+    torch.cuda.empty_cache()
+    out["t"] = t
+    return out
+
+
+def lm_flash_rank() -> dict:
+    """The flash-decode check on one rank: its 4096-token slice of a
+    gemma3-4b decode_32k layer's bf16 k and v, built on the card from a
+    seeded generator; `make_flash_decode` over ("data", "model") of a
+    2 x 4 mesh; the merge's collectives counted.  Rank 0 rebuilds every
+    rank's first LM_FLASH_CHECK_ROWS batch rows and holds the output's
+    rows against `attention.decode_attention` over the whole cache."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import flash_decode
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import attention
+    B, S, G, Hg, hd, softcap = LM_FLASH
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = mesh_lib.make_mesh((2, 4), ("data", "model"))
+    S_loc = S // world
+
+    def slice_of(r):
+        g = torch.Generator(device="cuda").manual_seed(1000 + r)
+        k = torch.randn((B, S_loc, G, hd), generator=g, device="cuda",
+                        dtype=torch.float32).to(torch.bfloat16)
+        v = torch.randn((B, S_loc, G, hd), generator=g, device="cuda",
+                        dtype=torch.float32).to(torch.bfloat16)
+        return k, v
+    gq = torch.Generator(device="cuda").manual_seed(999)
+    q = torch.randn((B, G, Hg, hd), generator=gq, device="cuda")
+    k_loc, v_loc = slice_of(flash_decode.seq_group(mesh, ("data", "model")
+                                                   )[1])
+    flash = flash_decode.make_flash_decode(mesh, ("data", "model"), B, S, G,
+                                           Hg, hd, softcap=softcap)
+    length = torch.tensor(LM_FLASH_LENGTH, device="cuda")
+    flash_decode.wire.reset()
+    _rank_sync()
+    t0 = time.perf_counter()
+    got = flash(q, k_loc, v_loc, length)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    wire = flash_decode.wire
+    census = dict(calls=dict(wire.calls), bytes=dict(wire.bytes),
+                  max_numel=wire.max_numel, seconds=wire.seconds)
+    times = []
+    for _ in range(3):
+        _rank_sync()
+        t0 = time.perf_counter()
+        again = flash(q, k_loc, v_loc, length)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    same = bool(torch.equal(again, got))
+    out = dict(census=census, first_s=first_s, step_s=times,
+               repeat_equal=same,
+               local_bytes=2 * k_loc.numel() * k_loc.element_size(),
+               cache_numel=B * S_loc * G * hd)
+    del k_loc, v_loc
+    torch.cuda.empty_cache()
+    if rank == 0:
+        rows = LM_FLASH_CHECK_ROWS
+        ks, vs = [], []
+        for r in range(world):
+            k, v = slice_of(r)
+            ks.append(k[:rows].clone())
+            vs.append(v[:rows].clone())
+            del k, v
+        kf, vf = torch.cat(ks, 1), torch.cat(vs, 1)
+        spec = attention.AttnSpec(n_heads=G * Hg, n_kv_heads=G, head_dim=hd,
+                                  rope_theta=None, softcap=softcap)
+        want = attention.decode_attention(
+            q[:rows].reshape(rows, 1, G * Hg, hd),
+            attention.KVCache(kf, vf, LM_FLASH_LENGTH), spec)[:, 0]
+        err = float((got[:rows].reshape(rows, G * Hg, hd) - want
+                     ).abs().max())
+        out.update(max_abs_err=err, finite=bool(torch.isfinite(got).all()))
+        del kf, vf
+    _rank_sync()
+    return out
+
+
+def lm_compress_rank() -> dict:
+    """(rank 0) int8 error-feedback compression of a full-width gpt-100m
+    gradient tree on the card, two rounds (the second with the first's
+    error), against the same calls on CPU copies, bit for bit."""
+    import torch
+    from repro_torch.configs import registry as configs
+    from repro_torch.distributed import compression
+    from repro_torch.models import registry as models
+    cfg = configs.get_config("gpt-100m")
+    api = models.build(cfg)
+    model = api.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    b = token_batch(cfg, 8, 256)
+    named = dict(model.named_parameters())
+    loss = api.train_loss(model, b)
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    err_d = compression.init_error(grads)
+    err_h = {k: v.cpu() for k, v in err_d.items()}
+    equal, t_card = True, []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_d, s_d, err_d = compression.compress(grads, err_d)
+        deq_d = compression.decompress(q_d, s_d)
+        torch.cuda.synchronize()
+        t_card.append(time.perf_counter() - t0)
+        q_h, s_h, err_h = compression.compress(
+            {k: g.cpu() for k, g in grads.items()}, err_h)
+        deq_h = compression.decompress(q_h, s_h)
+        for a, c in ((q_d, q_h), (s_d, s_h), (err_d, err_h),
+                     (deq_d, deq_h)):
+            equal &= all(torch.equal(a[k].cpu(), c[k]) for k in a)
+    f32 = sum(g.numel() * 4 for g in grads.values())
+    wire = compression.wire_bytes(q_d) + compression.wire_bytes(s_d)
+    on_card = all(t.is_cuda for t in list(q_d.values()) + list(s_d.values()))
+    return dict(equal=equal, on_card=on_card, leaves=len(grads),
+                f32_bytes=f32, wire_bytes=wire, card_s=t_card)
+
+
+def lm_world_rank(cfg) -> dict:
+    """One rank of the LM distribution world (gloo, every rank on
+    cuda:0): the elastic check, flash-decode, and on rank 0 the
+    compression check; this rank's K1-K8 launches over all three.
+    Results are numpy and plain numbers: a tensor does not outlive its
+    rank process through the result queue."""
+    import logging
+
+    import torch
+    import torch.distributed as dist
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    reset_counts()
+    out, t = {}, {}
+    for name, fn, args in (("elastic", lm_elastic_rank, (cfg, LM_MESHES)),
+                           ("flash", lm_flash_rank, ())):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        t[name] = time.perf_counter() - t0
+    if dist.get_rank() == 0:
+        t0 = time.perf_counter()
+        out["compress"] = lm_compress_rank()
+        t["compress"] = time.perf_counter() - t0
+    out["t"] = t
+    out["launches"] = {k: w.launches for k, w in wrappers().items()}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def lm_world(card) -> dict:
+    """(b) the 8-rank world: elastic resharding of qwen3-4b at full
+    width on (2, 4) and (4, 2), flash-decode at gemma3-4b's decode_32k
+    layer, compression on the card against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import registry as configs
+    from repro_torch.launch import mesh as mesh_lib
+    import torch
+    from repro_torch.distributed import elastic
+    from repro_torch.models import registry as models
+    full = configs.get_config("qwen3-4b")
+    cfg = dataclasses.replace(full, n_layers=LM_ELASTIC_LAYERS,
+                              dtype=LM_ELASTIC_DTYPE)
+    # reckoned before the world: one full build at a time, every rank's
+    # shards on both meshes, from the meta build
+    meta = models.build(cfg).init_params(None, device="meta")
+    full_b = sum(p.numel() * p.element_size() for p in meta.parameters())
+    shard_b = {s: sum(r["bytes_per_shard"] for r in elastic.shard_plan(
+        meta, dict(zip(("data", "model"), s))).values()) for s in LM_MESHES}
+    need = full_b + LM_WORLD * sum(shard_b.values())
+    free, total = torch.cuda.mem_get_info()
+    if need > free:
+        fail(f"lm world: {need / 1e9:.1f} GB of weights and shards exceed "
+             f"the card's free {free / 1e9:.1f} GB")
+    log(f"[lm world] reckoned from the meta build: qwen3-4b {cfg.dtype} at "
+        f"{cfg.n_layers} layers {full_b / 1e9:.2f} GB a full build (one "
+        f"at a time), shards a rank "
+        f"{ {str(s): round(b / 1e9, 3) for s, b in shard_b.items()} } GB; "
+        f"{LM_WORLD} ranks {need / 1e9:.1f} GB of the card's "
+        f"{free / 1e9:.1f} GB free, so no depth cut")
+    del meta
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_world(lm_world_rank, LM_WORLD, "cuda", args=(cfg,),
+                               timeout_s=900, collective_timeout_s=600)
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        require(f"lm world rank {r}", res["launches"], zero=tuple(KERNELS))
+    # (1) elastic
+    e0 = ranks[0]["elastic"]
+    want = e0["unsharded"]
+    shapes = [tuple(s) for s in LM_MESHES]
+    for s in shapes:
+        got = e0[s]["logits"]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"lm elastic {s}: logits {got.shape}, finite "
+                 f"{bool(np.isfinite(got).all())}")
+        if not np.allclose(got, want, atol=8e-2, rtol=3e-2):
+            fail(f"lm elastic {s}: logits differ from the unsharded prefill "
+                 f"by {float(np.abs(got - want).max())}")
+    a, b = (e0[s]["logits"] for s in shapes)
+    if not np.allclose(a, b, atol=8e-2, rtol=3e-2):
+        fail(f"lm elastic: the two meshes' logits differ by "
+             f"{float(np.abs(a - b).max())}")
+    wq = {s: e0[s]["wq"] for s in shapes}
+    if wq[shapes[0]]["shard_shape"] == wq[shapes[1]]["shard_shape"] or \
+            wq[shapes[0]]["global_shape"] != wq[shapes[1]]["global_shape"]:
+        fail(f"lm elastic: wq's plans {wq}")
+    for r, res in enumerate(ranks):
+        for s in shapes:
+            e = res["elastic"][s]
+            if e["resident"] != e["planned"] or not e["on_card"]:
+                fail(f"lm elastic {s} rank {r}: resident {e['resident']} "
+                     f"bytes on the card {e['on_card']}, planned "
+                     f"{e['planned']}")
+    errs = {str(s): float(np.abs(e0[s]["logits"] - want).max())
+            for s in shapes}
+    errs["between"] = float(np.abs(a - b).max())
+    prefill_s = {str(s): max(r["elastic"][s]["prefill_s"] for r in ranks)
+                 for s in shapes}
+    log(f"[lm elastic] qwen3-4b at full width, {cfg.n_layers} of "
+        f"{full.n_layers} layers, {cfg.dtype}: placed by `replace_onto_mesh` on "
+        f"(data, model) = {shapes[0]} and {shapes[1]} in a gloo world of "
+        f"{LM_WORLD} ranks on cuda:0; prefill {LM_ELASTIC_TOKENS} tokens at "
+        f"max_len {LM_ELASTIC_MAX_LEN} through DTensor: last-position "
+        f"logits within atol 8e-2 / rtol 3e-2 of the unsharded prefill "
+        f"and of each other (max abs diff {json.dumps(errs)}); wq's plan "
+        f"{json.dumps({str(s): wq[s] for s in shapes})}; per rank resident "
+        f"parameter bytes = the plan's sum on every rank "
+        f"({ {str(s): [r['elastic'][s]['resident'] for r in ranks][:2] for s in shapes} } "
+        f"on ranks 0-1), {e0[shapes[0]]['plan_leaves']} plan leaves, "
+        f"{ {str(s): e0[s]['stack_sharded'] for s in shapes} } block leaves "
+        f"whose reference spec shards the stack dim; a prefill's "
+        f"boundary fixes on rank 0 (each DTensor collective staged "
+        f"through the host, each reshape replicated) "
+        f"{ {str(s): e0[s]['boundaries'] for s in shapes} }; logits placements "
+        f"{ {str(s): e0[s]['logits_placements'] for s in shapes} }; "
+        f"prefill {json.dumps(prefill_s)} s (slowest rank), build and "
+        f"place {e0['t']['build_place_s']:.1f} s; {card}")
+    # (2) flash-decode
+    f0 = ranks[0]["flash"]
+    B, S, G, Hg, hd, softcap = LM_FLASH
+    if not f0["finite"] or f0["max_abs_err"] > 1e-5:
+        fail(f"lm flash-decode: max abs err {f0['max_abs_err']} > 1e-5 "
+             f"(finite {f0['finite']})")
+    for r, res in enumerate(ranks):
+        c = res["flash"]["census"]
+        if c["max_numel"] >= res["flash"]["cache_numel"] or \
+                not res["flash"]["repeat_equal"]:
+            fail(f"lm flash-decode rank {r}: a collective of "
+                 f"{c['max_numel']} elements against a cache slice of "
+                 f"{res['flash']['cache_numel']}, or a repeat differs")
+    step_ms = [min(r["flash"]["step_s"]) * 1e3 for r in ranks]
+    log(f"[lm flash-decode] gemma3-4b decode_32k layer: B {B}, S {S}, G {G}, "
+        f"Hg {Hg}, hd {hd}, softcap {softcap}, bf16 cache sharded on its "
+        f"sequence over (data, model) of a 2 x 4 mesh: "
+        f"{S // LM_WORLD} tokens = "
+        f"{f0['local_bytes'] / 1e9:.3f} GB of k and v a rank, built on the "
+        f"card; length {LM_FLASH_LENGTH}; rows 0-{LM_FLASH_CHECK_ROWS - 1} "
+        f"against decode_attention over the whole cache: max abs err "
+        f"{f0['max_abs_err']:.3e} (atol 1e-5); collectives a call on each "
+        f"rank {json.dumps(f0['census']['calls'])}, bytes "
+        f"{json.dumps(f0['census']['bytes'])}, largest "
+        f"{f0['census']['max_numel']} elements against a "
+        f"{f0['cache_numel']}-element cache slice; a call "
+        f"{min(step_ms):.2f}-{max(step_ms):.2f} ms of host time by rank "
+        f"(best of 3; the first {f0['first_s'] * 1e3:.1f} ms); {card}")
+    # (3) compression
+    c0 = ranks[0]["compress"]
+    if not c0["equal"] or not c0["on_card"]:
+        fail(f"lm compression: card against CPU equal {c0['equal']}, on "
+             f"the card {c0['on_card']}")
+    log(f"[lm compression] int8 error feedback over a full-width gpt-100m "
+        f"gradient tree ({c0['leaves']} leaves) on the card, two rounds: q, "
+        f"scales, new error and decompressed values equal the CPU's bit "
+        f"for bit; wire_bytes {c0['wire_bytes']} against "
+        f"{c0['f32_bytes']} float32 bytes ("
+        f"{c0['f32_bytes'] / c0['wire_bytes']:.3f}x smaller); compress + "
+        f"decompress {[round(x * 1e3, 2) for x in c0['card_s']]} ms on the "
+        f"card; {card}")
+    peak = max(r["peak_bytes"] for r in ranks)
+    log(f"[lm world] {LM_WORLD} ranks, {wall:.1f} s (by part on rank 0 "
+        f"{json.dumps({k: round(v, 1) for k, v in ranks[0]['t'].items()})}); "
+        f"largest rank peak {peak / 2**30:.2f} GiB; K1-K8 launched 0 times "
+        f"on every rank")
+    return dict(errs=errs, prefill_s=prefill_s,
+                flash_err=f0["max_abs_err"], flash_calls=f0["census"]["calls"],
+                flash_bytes=f0["census"]["bytes"], flash_ms=step_ms,
+                compress_ratio=c0["f32_bytes"] / c0["wire_bytes"],
+                wall_s=wall, rank_peak_bytes=peak,
+                layers=cfg.n_layers)
+
+
+def phase_lm_train(results, card):
+    """LM training and distribution on the card: (a) the training CLI
+    with resumable checkpoints, (b) the 8-rank world.  K1-K8 launch 0
+    times in every process of the phase."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    finish_cli, stop_cli = lm_train_cli(card)
+    try:
+        out = {"world": lm_world(card), "cli": finish_cli()}
+    finally:            # a failure must not leave a CLI process running
+        stop_cli()
+    require("lm train", {k: w.launches for k, w in wrappers().items()},
+            zero=tuple(KERNELS))
+    for k in KERNELS:
+        results.setdefault(k, {})["lm_train_launches"] = 0
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm train] phase {out['phase_s']:.1f} s; {card}")
+    results["_lm_train"] = out
 
 
 def phase_k1_shapes(results):
@@ -4080,6 +4798,13 @@ def main(argv=None):
                     "whisper-base at full width: train steps, decode "
                     "against the forward; their smoke configs on the card "
                     "against the CPU)")
+    ap.add_argument("--lm-train", action="store_true",
+                    help="only run the LM training and distribution phase "
+                    "(gpt-100m through the training CLI, killed and "
+                    "resumed bit for bit; an 8-rank world on the card: "
+                    "qwen3-4b resharded over DTensor on (2, 4) and (4, 2), "
+                    "flash-decode at gemma3-4b's decode_32k layer, int8 "
+                    "error-feedback compression against the CPU)")
     ap.add_argument("--chaos", action="store_true",
                     help="only run the chaos link layer's phase (Table 1 "
                     "over party processes under the gauntlet with zlib "
@@ -4168,6 +4893,12 @@ def main(argv=None):
             f"{time.perf_counter() - t_start:.1f} s; card {card}; summary "
             f"{json.dumps(results['_lm_families'])}")
         return
+    if args.lm_train:
+        phase_lm_train(results, card)
+        log(f"[done] LM train phase only, "
+            f"{time.perf_counter() - t_start:.1f} s; card {card}; summary "
+            f"{json.dumps(results['_lm_train'], default=str)}")
+        return
     if args.paper:
         phase_paper(results, priv)
         log(f"[done] paper path only, {time.perf_counter() - t_start:.1f} "
@@ -4200,12 +4931,17 @@ def main(argv=None):
     timed(phase_pipelined, results, priv)
     timed(phase_paper, results, priv)
     timed(phase_serve, results, mock)
-    for phase in (phase_socket, phase_chaos, phase_sharded,
-                  phase_secure_dryrun):
+    # the socket phase's kill run runs under the gauntlet and is also the
+    # chaos phase's killed run (one k = 3 kill run in place of two)
+    from repro_torch.runtime.chaos import ChaosProfile
+    timed(phase_socket, results, ChaosProfile(**GAUNTLET))
+    timed(phase_chaos, results, False)
+    for phase in (phase_sharded, phase_secure_dryrun):
         timed(phase, results)
     hand = {}
     timed(phase_lm, results, card, hand)
     timed(phase_lm_families, results, card, hand)
+    timed(phase_lm_train, results, card)
     for phase in (phase_k1_shapes, phase_probe, phase_bench):
         timed(phase, results)
     summary = {k: results.pop(k) for k in list(results) if k[0] == "_"}
@@ -4223,7 +4959,8 @@ def main(argv=None):
                       "serve_launches", "serve_shapes", "socket_launches",
                       "codec_shapes", "chaos_launches",
                       "sharded_launches", "dryrun_launches",
-                      "lm_head_launches", "lm_head"):
+                      "lm_head_launches", "lm_head",
+                      "lm_train_launches"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if "paper_launches" in r:      # the iterations they were counted over

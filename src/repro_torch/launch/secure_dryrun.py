@@ -312,8 +312,10 @@ def _synced(device) -> float:
 def _rank_step(spec: dict) -> dict:
     """One configuration on this rank: a cold step (its start and end on
     the wall clock), then a warm step timed with its products and
-    collectives, under `torch.profiler` on a card for the device
-    time."""
+    collectives, under `torch.profiler` on a card for the device time.
+    With ``spec["warm"]`` false the cold step is the only one: its
+    outputs, products and collectives are reported, its time as the
+    step's, and no device time."""
     import contextlib
     import torch.distributed as dist
     mesh = mesh_lib.make_mesh(spec["dims"], AXES, spec["device_type"])
@@ -325,22 +327,26 @@ def _rank_step(spec: dict) -> dict:
                       spec["seed"])
     args = (inp["exps"], inp["cts"], inp["d_hi"], inp["d_lo"])
     on_card = step.device.type == "cuda"
+    warm = spec.get("warm", True)
     if on_card:
         torch.cuda.reset_peak_memory_stats(step.device)
+    secure_ops.stats.reset()
     cold_start = time.time()
-    step(*args)
+    enc_g, words = step(*args)
     _synced(step.device)
     first_end = time.time()
+    step_s = first_end - cold_start
     dist.barrier()
-    secure_ops.stats.reset()
-    prof = contextlib.nullcontext()
-    if on_card:
-        from torch.profiler import ProfilerActivity, profile
-        prof = profile(activities=[ProfilerActivity.CUDA])
-    with prof:
-        t0 = _synced(step.device)
-        enc_g, words = step(*args)
-        step_s = _synced(step.device) - t0
+    if warm:
+        secure_ops.stats.reset()
+        prof = contextlib.nullcontext()
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CUDA])
+        with prof:
+            t0 = _synced(step.device)
+            enc_g, words = step(*args)
+            step_s = _synced(step.device) - t0
     out = {"coord": tuple(int(c) for c in mesh.get_coordinate()),
            "cold_start": cold_start, "first_end": first_end,
            "step_s": step_s, "montmuls": step.montmuls,
@@ -357,9 +363,10 @@ def _rank_step(spec: dict) -> dict:
         from torch.autograd import DeviceType
         # the device's own events (a torch op's self device time repeats
         # its kernels')
-        out["device_s"] = sum(
-            float(e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU) / 1e6
+        if warm:
+            out["device_s"] = sum(
+                float(e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU) / 1e6
         del enc_g, words
         torch.cuda.empty_cache()
     return out
