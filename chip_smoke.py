@@ -84,7 +84,8 @@ the two on one card.
     python3 chip_smoke.py --lm       # only the LM phase
 
 runs only `phase_lm` (described below), ``--lm-families`` only
-`phase_lm_families`, ``--lm-train`` only `phase_lm_train`, and
+`phase_lm_families`, ``--lm-train`` only `phase_lm_train`,
+``--lm-dryrun`` only `phase_lm_dryrun`, and
 
     python3 chip_smoke.py --paper    # only the paper's evaluation path
 
@@ -249,7 +250,22 @@ softcap 50) with each rank's 4096-token slice of a bf16 cache built on
 the card, held against `attention.decode_attention` over the whole
 cache on 8 batch rows at 1e-5, every collective counted and none
 cache-sized; int8 error-feedback compression of a full-width gpt-100m
-gradient tree on the card equal to the CPU's bit for bit.
+gradient tree on the card equal to the CPU's bit for bit; (c) each
+rank's DTensor collectives in the qwen3-4b prefill (`CommDebugMode`)
+equal to the LM dry-run's census of the same step on both meshes.
+Then the LM dry-run (`phase_lm_dryrun`, also alone as ``python3
+chip_smoke.py --lm-dryrun``), K1-K8 launched 0 times in every process:
+(a) ``python -m repro_torch.launch.dryrun`` in subprocesses, each a fake
+world of its mesh's size on a cuda mesh: ``--smoke`` for every arch on
+the (2, 4) and (2, 2, 4) meshes, and qwen3-4b train_4k and olmoe-1b-7b
+decode_32k at full config on 16 × 16; every record ok, its analytic
+fields equal to `launch.costmodel.cell_costs`; (b) gpt-100m's train step
+at 8 × 256, qwen3-4b's prefill at 2 × 256 and decode at batch 2 over a
+256-token context, full configs on a (1, 1) mesh: each traced on meta
+in a fake world, then run for real on seeded weights in a gloo world of
+one rank through the same census: FLOPs equal, the allocator's peak
+within 0.8–1.25× the trace's estimate, the profiler's device time no
+less than the record's roofline bound.
 Device time is the sum over the profiler's device events (a torch op's
 own event repeats its kernels' time).
 """
@@ -4049,8 +4065,6 @@ LM_CLI_STEPS, LM_CLI_EVERY, LM_CLI_DIE = 25, 10, 20
 #: free bytes a memory-backed directory needs to hold the CLI runs'
 #: checkpoints (2 runs x keep 3 x 1.54 GB)
 LM_CLI_SHM_BYTES = 12e9
-#: an H100 SXM's dense bf16 tensor-core peak, FLOP/s (NVIDIA data sheet)
-BF16_DENSE_FLOPS = 989e12
 #: the world of the mesh checks: ranks on cuda:0, the two meshes
 LM_WORLD, LM_MESHES = 8, ((2, 4), (4, 2))
 #: qwen3-4b in the elastic check: all 36 layers at full width, in
@@ -4068,11 +4082,12 @@ LM_FLASH = (128, 32768, 4, 2, 256, 50.0)
 LM_FLASH_LENGTH, LM_FLASH_CHECK_ROWS = 30001, 8
 
 
-def lm_cli(argv: list, log_to: Path):
-    """Start `python -m repro_torch.launch.train <argv>` in a subprocess
-    that prints its kernel launch counts at its exit; returns (the
-    process, a function that waits for it and gives (exit code, output,
-    counts))."""
+def counted_module(module: str, argvs: list, log_to: Path):
+    """Start a subprocess that runs `python -m <module> <argv>` for each
+    argv of `argvs` in turn (one interpreter, one CUDA context) and
+    prints its kernel launch counts at its exit, its output written to
+    `log_to`; its exit code is the largest of the runs'.  Returns the
+    process."""
     code = (
         "import atexit, json, runpy, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -4080,28 +4095,52 @@ def lm_cli(argv: list, log_to: Path):
         "atexit.register(lambda: print('[counts] ' + json.dumps(\n"
         "    {k: w.launches for k, w in chip_smoke.wrappers().items()}),\n"
         "    flush=True))\n"
-        f"sys.argv = ['repro_torch.launch.train'] + {argv!r}\n"
-        "runpy.run_module('repro_torch.launch.train', run_name='__main__',\n"
-        "                 alter_sys=True)\n")
+        "worst = 0\n"
+        f"for argv in {argvs!r}:\n"
+        f"    sys.argv = [{module!r}] + argv\n"
+        "    try:\n"
+        f"        runpy.run_module({module!r}, run_name='__main__',\n"
+        "                         alter_sys=True)\n"
+        "        rc = 0\n"
+        "    except SystemExit as e:\n"
+        "        rc = e.code if isinstance(e.code, int) else int(\n"
+        "            e.code is not None)\n"
+        "    worst = max(worst, rc)\n"
+        "sys.exit(worst)\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with open(log_to, "w") as f:
+        return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                env=env, stdout=f, stderr=subprocess.STDOUT,
+                                text=True)
+
+
+def launch_counts(out: str) -> dict:
+    """The launch counts a `counted_module` process printed at its exit
+    ({} if it printed none)."""
+    counts = {}
+    for line in out.splitlines():
+        if line.startswith("[counts] "):
+            counts = json.loads(line[len("[counts] "):])
+    return counts
+
+
+def lm_cli(argv: list, log_to: Path):
+    """Start `python -m repro_torch.launch.train <argv>` as a
+    `counted_module`; returns (the process, a function that waits for it
+    and gives (exit code, output, counts, seconds))."""
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+    proc = counted_module("repro_torch.launch.train", [argv], log_to)
 
     def wait():
         try:
-            out, _ = proc.communicate(timeout=600)
+            proc.wait(timeout=600)
         finally:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        log_to.write_text(out)
-        counts = {}
-        for line in out.splitlines():
-            if line.startswith("[counts] "):
-                counts = json.loads(line[len("[counts] "):])
-        return proc.returncode, out, counts, time.perf_counter() - t0
+        out = log_to.read_text()
+        return proc.returncode, out, launch_counts(out), \
+            time.perf_counter() - t0
     return proc, wait
 
 
@@ -4232,6 +4271,7 @@ def lm_train_cli(card):
         if abs(step_flops - fwd * mult) > 1e-6 * step_flops:
             fail(f"lm train cli: cell_costs' {step_flops} FLOPs a step "
                  f"against forward x {mult} = {fwd * mult}")
+        from repro_torch.launch.dryrun import BF16_DENSE_FLOPS
         mfu = step_flops / (step_ms * 1e-3) / BF16_DENSE_FLOPS
         shutil.rmtree(root, ignore_errors=True)
         log(f"[lm train cli] python -m repro_torch.launch.train --arch "
@@ -4279,7 +4319,9 @@ def lm_elastic_rank(cfg, meshes) -> dict:
     rank's resident bytes."""
     import torch
     import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch.distributed import elastic, sharding
+    from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import registry as models
     rank = dist.get_rank()
@@ -4321,10 +4363,13 @@ def lm_elastic_rank(cfg, meshes) -> dict:
         _rank_sync()
         elastic.boundaries.clear()
         t0 = time.perf_counter()
-        with torch.no_grad(), elastic.sharded():
-            logits, cache = api.prefill(model, toks, LM_ELASTIC_MAX_LEN)
-            full_logits = (logits.full_tensor() if hasattr(
-                logits, "full_tensor") else logits)
+        with torch.no_grad():
+            # (c): the prefill's DTensor collectives by kind
+            with CommDebugMode() as comm, elastic.sharded():
+                logits, cache = api.prefill(model, toks, LM_ELASTIC_MAX_LEN)
+            with elastic.sharded():
+                full_logits = (logits.full_tensor() if hasattr(
+                    logits, "full_tensor") else logits)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         local_logits = logits.to_local() if hasattr(logits, "to_local") \
@@ -4336,6 +4381,7 @@ def lm_elastic_rank(cfg, meshes) -> dict:
             local_logits_shape=list(local_logits.shape),
             resident=resident, planned=planned, on_card=on_card,
             prefill_s=dt, boundaries=dict(elastic.boundaries),
+            comm=dryrun.comm_counts(comm),
             wq=plan["layers/attn/wq"],
             stack_sharded=len(sharding.stack_sharded(meta, dm)),
             plan_leaves=len(plan))
@@ -4490,6 +4536,38 @@ def lm_world_rank(cfg) -> dict:
     return out
 
 
+def lm_world_census(cfg) -> dict:
+    """(c)'s prediction: the dry-run's census of the world's prefill on
+    each of LM_MESHES, traced on ``meta`` in a fake world of LM_WORLD
+    ranks on a cuda mesh: the bundle's prefill step with the world's
+    max_len, its tokens replicated as the world's plain tensors are."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import registry as models
+    B, S = LM_ELASTIC_TOKENS
+    out = {}
+    for shape in LM_MESHES:
+        with dryrun.fake_world(LM_WORLD):
+            dm = mesh_lib.make_mesh(shape, ("data", "model"))
+            bundle = steps.build_step_bundle(
+                cfg, ShapeCell("world-prefill", S, B, "prefill"), dm)
+            bundle = dataclasses.replace(
+                bundle, fn=steps.make_prefill_step(models.build(cfg),
+                                                   LM_ELASTIC_MAX_LEN),
+                in_shardings=(bundle.in_shardings[0], {"tokens": ()}))
+            rep, _ = dryrun.trace(bundle, dm)
+        out[tuple(shape)] = dict(
+            op_counts=rep["collectives"]["op_counts"],
+            bytes={k: v for k, v in rep["collectives"].items()
+                   if k != "op_counts"},
+            flops=rep["flops"], peak_bytes=rep["peak_bytes"],
+            boundaries=rep["boundaries"], trace_s=rep["trace_s"])
+    return out
+
+
 def lm_world(card) -> dict:
     """(b) the 8-rank world: elastic resharding of qwen3-4b at full
     width on (2, 4) and (4, 2), flash-decode at gemma3-4b's decode_32k
@@ -4523,6 +4601,7 @@ def lm_world(card) -> dict:
         f"{LM_WORLD} ranks {need / 1e9:.1f} GB of the card's "
         f"{free / 1e9:.1f} GB free, so no depth cut")
     del meta
+    predicted = lm_world_census(cfg)
     t0 = time.perf_counter()
     ranks = mesh_lib.run_world(lm_world_rank, LM_WORLD, "cuda", args=(cfg,),
                                timeout_s=900, collective_timeout_s=600)
@@ -4556,6 +4635,26 @@ def lm_world(card) -> dict:
                 fail(f"lm elastic {s} rank {r}: resident {e['resident']} "
                      f"bytes on the card {e['on_card']}, planned "
                      f"{e['planned']}")
+    for r, res in enumerate(ranks):
+        for s in shapes:
+            got = res["elastic"][s]["comm"]
+            if got != predicted[s]["op_counts"]:
+                fail(f"lm census {s} rank {r}: the prefill's DTensor "
+                     f"collectives {got} differ from the dry-run's "
+                     f"{predicted[s]['op_counts']}")
+    log(f"[lm census] qwen3-4b {cfg.dtype} at {cfg.n_layers} layers, "
+        f"prefill {LM_ELASTIC_TOKENS} at max_len {LM_ELASTIC_MAX_LEN}: the "
+        f"DTensor collectives CommDebugMode counted on each of the "
+        f"{LM_WORLD} ranks equal the dry-run's census of the same step "
+        f"(meta, a fake world of {LM_WORLD} on a cuda mesh) on both "
+        f"meshes: "
+        f"{ {str(s): predicted[s]['op_counts'] for s in shapes} }; the "
+        f"dry-run's result bytes a rank "
+        f"{ {str(s): predicted[s]['bytes']['total_bytes'] for s in shapes} }"
+        f", FLOPs a rank "
+        f"{ {str(s): predicted[s]['flops'] for s in shapes} }, trace "
+        f"{ {str(s): round(predicted[s]['trace_s'], 2) for s in shapes} } "
+        f"s; {card}")
     errs = {str(s): float(np.abs(e0[s]["logits"] - want).max())
             for s in shapes}
     errs["between"] = float(np.abs(a - b).max())
@@ -4627,6 +4726,7 @@ def lm_world(card) -> dict:
         f"largest rank peak {peak / 2**30:.2f} GiB; K1-K8 launched 0 times "
         f"on every rank")
     return dict(errs=errs, prefill_s=prefill_s,
+                census={str(s): predicted[s]["op_counts"] for s in shapes},
                 flash_err=f0["max_abs_err"], flash_calls=f0["census"]["calls"],
                 flash_bytes=f0["census"]["bytes"], flash_ms=step_ms,
                 compress_ratio=c0["f32_bytes"] / c0["wire_bytes"],
@@ -4652,6 +4752,295 @@ def phase_lm_train(results, card):
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[lm train] phase {out['phase_s']:.1f} s; {card}")
     results["_lm_train"] = out
+
+
+# ---------------------------------------------------------------------------
+# The LM dry-run: the CLI over fake worlds, real steps on the card against
+# their traces, and (inside phase_lm_train's world) the DTensor census of
+# a real sharded prefill against its trace
+# ---------------------------------------------------------------------------
+
+#: (a) the CLI's production cells: full configs on one 16 x 16 pod
+LM_DRYRUN_FULL = (("qwen3-4b", "train_4k"), ("olmoe-1b-7b", "decode_32k"))
+#: (a) the CLI processes run at once (the host's 8 cores: (b) runs in
+#: this process beside them)
+LM_DRYRUN_PROCS = 7
+#: the families whose traces loop over the tokens
+SCAN = ("ssm", "hybrid")
+#: (b) real steps against their traces on a (1, 1) mesh, full configs:
+#: (arch, kind, tokens, batch); a decode step's tokens are its context
+LM_DRYRUN_REAL = (("gpt-100m", "train", 256, 8),
+                  ("qwen3-4b", "prefill", 256, 2),
+                  ("qwen3-4b", "decode", 256, 2))
+#: (b) the band the allocator's peak must fall in, as a share of the
+#: trace's estimate
+LM_DRYRUN_PEAK_BAND = (0.8, 1.25)
+#: the records' analytic fields, held equal to the port's cost model
+LM_DRYRUN_ANALYTIC = ("flops_per_dev", "hbm_bytes_per_dev",
+                      "coll_bytes_per_dev", "costmodel", "compute_s",
+                      "memory_s", "collective_s", "model_flops_total",
+                      "useful_flops_ratio")
+
+
+def lm_dryrun_cli(card):
+    """(a) `python -m repro_torch.launch.dryrun` as a user runs it:
+    ``--smoke`` for every arch of the registry on both debug meshes and
+    the production cells at full config on 16 x 16, each run in its own
+    fake world on a cuda mesh: the scan families a process each (their
+    traces are the longest, started first), the full cells in one, the
+    other archs two a process (a process's start and CUDA context cost
+    15-25 s on the card's host), LM_DRYRUN_PROCS processes at a time on
+    a thread.  Returns (a function that waits for
+    them and checks: every process exits 0 with no FAIL and launches
+    K1-K8 0 times; every record is ok and its analytic fields equal the
+    port's `costmodel.cell_costs` (`dryrun.analytic`); a function that
+    stops whichever of them still runs)."""
+    from repro_torch.configs import registry as configs
+    from repro_torch.launch import dryrun
+    out = ROOT / "build" / "lm_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    archs = configs.list_archs()
+    scan = [a for a in archs if configs.get_config(a).family in SCAN]
+    rest = [a for a in archs if a not in scan]
+
+    def smoke(arch):
+        return ["--smoke", "--arch", arch, "--out", str(out / "smoke")]
+    # a process a scan family (the longest traces), one for the full
+    # cells, the other archs two a process
+    jobs = [(f"smoke:{a}", [smoke(a)]) for a in scan]
+    jobs.append(("full", [["--arch", a, "--cell", c, "--out",
+                           str(out / "full")] for a, c in LM_DRYRUN_FULL]))
+    jobs += [("smoke:" + "+".join(rest[i:i + 2]),
+              [smoke(a) for a in rest[i:i + 2]])
+             for i in range(0, len(rest), 2)]
+    done, state, running = {}, {}, []
+
+    def schedule():
+        pending = list(jobs)
+        t0 = time.perf_counter()
+        try:
+            while (pending or running) and "stop" not in state:
+                while pending and len(running) < LM_DRYRUN_PROCS:
+                    label, argv = pending.pop(0)
+                    log_to = out / (label.replace(":", "__") + ".log")
+                    running.append((label, log_to, time.perf_counter(),
+                                    counted_module(
+                                        "repro_torch.launch.dryrun", argv,
+                                        log_to)))
+                for job in list(running):
+                    label, log_to, started, proc = job
+                    if proc.poll() is None:
+                        if time.perf_counter() - started > 900:
+                            state["error"] = f"{label}: still running " \
+                                "after 900 s"
+                            return
+                        continue
+                    running.remove(job)
+                    done[label] = (proc.returncode, log_to.read_text(),
+                                   time.perf_counter() - started)
+                time.sleep(0.2)
+        finally:           # a failure must not leave a process running
+            for *_, proc in running:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            state["wall"] = time.perf_counter() - t0
+    thread = threading.Thread(target=schedule, name="lm-dryrun-cli",
+                              daemon=True)
+    thread.start()
+
+    def stop():
+        state["stop"] = True
+        thread.join()
+
+    def finish() -> dict:
+        thread.join()
+        if "error" in state:
+            fail(f"lm dryrun cli {state['error']}")
+        for label, (rc, text, _) in done.items():
+            if rc != 0 or "FAIL" in text:
+                tail = "\n".join(text.splitlines()[-15:])
+                fail(f"lm dryrun cli {label}: exit {rc}\n{tail}")
+            counts = launch_counts(text)
+            if not counts:
+                fail(f"lm dryrun cli {label}: no launch counts printed")
+            require(f"lm dryrun cli {label}", counts, zero=tuple(KERNELS))
+        recs = {}
+        for sub in ("smoke", "full"):
+            for path in sorted((out / sub).glob("*.json")):
+                recs[(sub, path.stem)] = json.loads(path.read_text())
+        want = 2 * sum(len(dryrun.cell_plan(a)) for a in archs) + \
+            len(LM_DRYRUN_FULL)
+        if len(recs) != want:
+            fail(f"lm dryrun cli: {len(recs)} records, expected {want}")
+        for (sub, tag), d in recs.items():
+            if not d.get("ok"):
+                fail(f"lm dryrun cli {tag}: not ok: {d.get('error')}")
+            mesh = dryrun.mesh_axes(d["mesh"].split("x"))
+            smoke = sub == "smoke"
+            ref = dryrun.analytic(dryrun.config_for(d["arch"], smoke, None),
+                                  dryrun.cell_for(d["cell"], mesh, smoke),
+                                  mesh)
+            bad = [k for k in LM_DRYRUN_ANALYTIC if d[k] != ref[k]]
+            if bad:
+                fail(f"lm dryrun cli {tag}: {bad} differ from the port's "
+                     "cost model")
+        trace_s = {tag: round(d["trace_s"], 2)
+                   for (_, tag), d in recs.items()}
+        slowest = sorted(trace_s.items(), key=lambda kv: -kv[1])[:8]
+        log(f"[lm dryrun cli] {sum(len(a) for _, a in jobs)} runs of the "
+            f"CLI in {len(jobs)} processes ({LM_DRYRUN_PROCS} at a time, "
+            f"each run a fake world of its mesh's size on a cuda mesh) "
+            f"in {state['wall']:.1f} s: {len(recs)} records ok, each "
+            f"record's analytic fields equal to the port's "
+            f"costmodel.cell_costs; K1-K8 launched 0 times in every "
+            f"process; process seconds "
+            f"{json.dumps({k: round(v[2], 1) for k, v in done.items()})}; "
+            f"slowest traces (s) {json.dumps(dict(slowest))}; {card}")
+        log(f"[lm dryrun cli] trace seconds by cell {json.dumps(trace_s)}")
+        for (sub, tag), d in recs.items():
+            if sub != "full":
+                continue
+            log(f"[lm dryrun cli] {tag} (full config, {d['n_devices']} "
+                f"fake ranks): build {d['build_s']:.2f} s, place "
+                f"{d['place_s']:.2f} s, trace {d['trace_s']:.2f} s; peak "
+                f"{d['peak_bytes_per_dev'] / 2**30:.3f} GiB a rank "
+                f"(arguments {d['arg_bytes_per_dev'] / 2**30:.3f}); "
+                f"measured {d['measured']['flops']:.4e} FLOPs a rank "
+                f"against the cost model's {d['flops_per_dev']:.4e}; "
+                f"collectives {json.dumps(d['collectives']['op_counts'])}, "
+                f"{d['collectives']['total_bytes']:.4e} bytes (model "
+                f"{d['coll_bytes_per_dev']:.4e}); roofline compute "
+                f"{d['compute_s'] * 1e3:.3f} / memory "
+                f"{d['memory_s'] * 1e3:.3f} / collective "
+                f"{d['collective_s'] * 1e3:.3f} ms; boundaries "
+                f"{json.dumps(d['boundaries'])}")
+        return dict(wall_s=state["wall"], records=len(recs),
+                    trace_s=trace_s,
+                    process_s={k: v[2] for k, v in done.items()},
+                    full={tag: {k: d[k] for k in (
+                        "trace_s", "build_s", "peak_bytes_per_dev",
+                        "flops_per_dev", "compute_s", "memory_s",
+                        "collective_s")} | {"measured_flops":
+                                            d["measured"]["flops"]}
+                        for (sub, tag), d in recs.items() if sub == "full"})
+    return finish, stop
+
+
+def lm_dryrun_real(card) -> dict:
+    """(b) each of LM_DRYRUN_REAL: its dry-run on a (1, 1) mesh of a fake
+    world (`dryrun.measure`), then the same bundle's step for real on
+    cuda:0 in a gloo world of one rank, on seeded weights placed as the
+    dry-run places its meta tensors, measured by the same census
+    (`dryrun.place_args`, then `dryrun.run_placed`: `dryrun.trace`'s
+    parts, so the peak is read over the placed arguments only).  Its FLOPs must equal the dry-run's; the
+    allocator's peak over the step (its placed arguments included) must
+    fall in LM_DRYRUN_PEAK_BAND of the dry-run's estimate; the
+    profiler's device time of the step must be no less than the
+    record's roofline bound (the larger of compute_s and memory_s)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry as configs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import elastic
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as mesh_lib
+    # cuBLAS's workspaces belong to the process, made by its first
+    # products: made here, before any peak is read
+    w = torch.ones((64, 64), device="cuda")
+    (w @ w, w.bfloat16() @ w.bfloat16())
+    torch.cuda.synchronize()
+    rows = {}
+    for seed, (arch, kind, tokens, batch) in enumerate(LM_DRYRUN_REAL):
+        cfg = configs.get_config(arch)
+        cell = ShapeCell(f"{arch}-{kind}", tokens, batch, kind)
+        label = f"{arch} {kind} {batch}x{tokens}"
+        with dryrun.fake_world(1):
+            rec = dryrun.measure(cfg, cell, mesh_lib.make_mesh(
+                (1, 1), ("data", "model")))
+        store = tempfile.mkdtemp(prefix="lm-dryrun-world-")
+        dist.init_process_group(
+            "gloo", init_method="file://" + os.path.join(store, "store"),
+            rank=0, world_size=1)
+        try:
+            dm = mesh_lib.make_mesh((1, 1), ("data", "model"))
+            bundle = steps.build_step_bundle(cfg, cell, dm)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            placed = dryrun.place_args(bundle, dm, dryrun.materialize(
+                bundle, cfg, gen, "cuda"))
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            rep, out = dryrun.run_placed(bundle, dm, placed)
+            peak = dryrun.peak_bytes("cuda") - base
+            first = out[0].to_local() if hasattr(out[0], "to_local") \
+                else out[0]
+            finite = bool(torch.isfinite(first.float()).all())
+            del out
+            with elastic.sharded():
+                dev_us = profiled(lambda: bundle.fn(*placed), host=False)[2]
+            del placed
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
+        bound_ms = max(rec["compute_s"], rec["memory_s"]) * 1e3
+        dev_ms = dev_us / 1e3
+        ratio = peak / rec["peak_bytes_per_dev"]
+        if rep["flops"] != rec["measured"]["flops"]:
+            fail(f"lm dryrun real {label}: {rep['flops']} FLOPs on the card "
+                 f"against the dry-run's {rec['measured']['flops']}")
+        if not LM_DRYRUN_PEAK_BAND[0] <= ratio <= LM_DRYRUN_PEAK_BAND[1]:
+            fail(f"lm dryrun real {label}: the allocator's peak {peak} "
+                 f"bytes is {ratio:.4f}x the dry-run's estimate "
+                 f"{rec['peak_bytes_per_dev']}")
+        if dev_ms < bound_ms:
+            fail(f"lm dryrun real {label}: device time {dev_ms:.4f} ms "
+                 f"under the roofline bound {bound_ms:.4f} ms")
+        if not finite:
+            fail(f"lm dryrun real {label}: the step's first output is not "
+                 "finite")
+        rows[label] = dict(
+            flops=rep["flops"], analytic_flops=rec["flops_per_dev"],
+            alloc_peak=peak, est_peak=rec["peak_bytes_per_dev"],
+            peak_ratio=ratio, census_peak_real=rep["peak_bytes"],
+            device_ms=dev_ms, bound_ms=bound_ms,
+            bound_by="compute" if rec["compute_s"] >= rec["memory_s"]
+            else "memory", step_s=rep["trace_s"], trace_s=rec["trace_s"])
+        log(f"[lm dryrun real] {label} (full config, (1, 1) mesh): FLOPs "
+            f"on the card {rep['flops']:.6e} = the dry-run's (cost model "
+            f"{rec['flops_per_dev']:.6e}); allocator peak {peak} bytes = "
+            f"{ratio:.4f}x the dry-run's estimate "
+            f"{rec['peak_bytes_per_dev']} (band {LM_DRYRUN_PEAK_BAND}; the "
+            f"real run's own census {rep['peak_bytes']}); device time "
+            f"{dev_ms:.3f} ms >= roofline bound {bound_ms:.4f} ms "
+            f"({rows[label]['bound_by']}); the real step under the census "
+            f"{rep['trace_s']:.2f} s of host time, the trace "
+            f"{rec['trace_s']:.2f} s; {card}")
+    return rows
+
+
+def phase_lm_dryrun(results, card):
+    """The LM dry-run on the card's host and against the card: (a) the
+    CLI over fake worlds, (b) real steps against their traces.  K1-K8
+    launch 0 times in every process of the phase; (c), the census
+    against a real 8-rank world, runs inside phase_lm_train's world."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    finish_cli, stop_cli = lm_dryrun_cli(card)    # beside (b)
+    try:
+        out = {"real": lm_dryrun_real(card), "cli": finish_cli()}
+    finally:            # a failure must not leave a CLI process running
+        stop_cli()
+    require("lm dryrun", {k: w.launches for k, w in wrappers().items()},
+            zero=tuple(KERNELS))
+    for k in KERNELS:
+        results.setdefault(k, {})["lm_dryrun_launches"] = 0
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm dryrun] phase {out['phase_s']:.1f} s; {card}")
+    results["_lm_dryrun"] = out
 
 
 def phase_k1_shapes(results):
@@ -4805,6 +5194,13 @@ def main(argv=None):
                     "qwen3-4b resharded over DTensor on (2, 4) and (4, 2), "
                     "flash-decode at gemma3-4b's decode_32k layer, int8 "
                     "error-feedback compression against the CPU)")
+    ap.add_argument("--lm-dryrun", action="store_true",
+                    help="only run the LM dry-run's phase (the dry-run CLI "
+                    "over fake worlds: every arch's smoke cells on both "
+                    "debug meshes, qwen3-4b train_4k and olmoe-1b-7b "
+                    "decode_32k at full config on 16 x 16; gpt-100m train "
+                    "and qwen3-4b prefill and decode for real on the card "
+                    "against their traces)")
     ap.add_argument("--chaos", action="store_true",
                     help="only run the chaos link layer's phase (Table 1 "
                     "over party processes under the gauntlet with zlib "
@@ -4899,6 +5295,12 @@ def main(argv=None):
             f"{time.perf_counter() - t_start:.1f} s; card {card}; summary "
             f"{json.dumps(results['_lm_train'], default=str)}")
         return
+    if args.lm_dryrun:
+        phase_lm_dryrun(results, card)
+        log(f"[done] LM dry-run phase only, "
+            f"{time.perf_counter() - t_start:.1f} s; card {card}; summary "
+            f"{json.dumps(results['_lm_dryrun'], default=str)}")
+        return
     if args.paper:
         phase_paper(results, priv)
         log(f"[done] paper path only, {time.perf_counter() - t_start:.1f} "
@@ -4942,6 +5344,7 @@ def main(argv=None):
     timed(phase_lm, results, card, hand)
     timed(phase_lm_families, results, card, hand)
     timed(phase_lm_train, results, card)
+    timed(phase_lm_dryrun, results, card)
     for phase in (phase_k1_shapes, phase_probe, phase_bench):
         timed(phase, results)
     summary = {k: results.pop(k) for k in list(results) if k[0] == "_"}
@@ -4960,7 +5363,7 @@ def main(argv=None):
                       "codec_shapes", "chaos_launches",
                       "sharded_launches", "dryrun_launches",
                       "lm_head_launches", "lm_head",
-                      "lm_train_launches"):
+                      "lm_train_launches", "lm_dryrun_launches"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if "paper_launches" in r:      # the iterations they were counted over

@@ -1,6 +1,6 @@
 """Benchmark entry point of the port: the ``kernels``, ``table1``,
-``table2``, ``fig1``, ``fig2``, ``checkpoint``, ``serve``, ``wire`` and
-``wan`` modes of the reference's `benchmarks/run.py`.
+``table2``, ``fig1``, ``fig2``, ``checkpoint``, ``serve``, ``wire``,
+``wan`` and ``roofline`` modes of the reference's `benchmarks/run.py`.
 
     python -m repro_torch.bench.run --only kernels [--smoke]
     python -m repro_torch.bench.run --guards
@@ -12,6 +12,7 @@
     python -m repro_torch.bench.run --only serve [--smoke]
     python -m repro_torch.bench.run --only wire [--smoke]
     python -m repro_torch.bench.run --only wan [--smoke]
+    python -m repro_torch.bench.run --only roofline
     python -m repro_torch.bench.run --only table1 --device cpu --n 180 \
         --iters 3 --key-bits 192          # a check without the card
 
@@ -45,7 +46,10 @@ Full mode on the card writes them to ``BENCH_cuda_checkpoint.json`` /
 and ``wan100`` shaping profiles, each shaped run's losses, meters and
 rounds held equal to the unshaped run's, its wall clock beside
 rounds × (latency + jitter / 2)); full mode on the card writes
-``BENCH_cuda_wan.json``.
+``BENCH_cuda_wan.json``.  ``roofline``: the roofline rows of the LM
+dry-run's records in ``results/dryrun`` (`bench.roofline`; written by
+`python -m repro_torch.launch.dryrun`), or a line saying there are none;
+it reads files and needs no card.
 
 One difference from the reference: a guard violation is reported after
 the file is written, so a violation measured on the card is recorded,
@@ -266,12 +270,33 @@ def bench_wan(smoke: bool, device: str) -> dict:
     return report
 
 
+def bench_roofline() -> list[dict]:
+    """The roofline rows of the LM dry-run's records (`bench.roofline`),
+    printed as the reference prints them."""
+    from repro_torch.bench import roofline
+    rows = roofline.run()
+    if not rows:
+        print("# roofline: no dry-run results found "
+              "(run python -m repro_torch.launch.dryrun --all first)")
+        return rows
+    for r in rows:
+        if r["status"] != "ok":
+            _csv(f"roofline.{r['arch']}.{r['cell']}.{r['mesh']}", 0.0,
+                 f"FAIL:{r['error']}")
+            continue
+        _csv(f"roofline.{r['arch']}.{r['cell']}.{r['mesh']}",
+             max(r["compute_ms"], r["memory_ms"], r["collective_ms"]) * 1e3,
+             f"dom={r['dominant']};frac={r['roofline_frac']};"
+             f"useful={r['useful_flops_ratio']};peak_gib={r['peak_gib']}")
+    return rows
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="kernels",
                     choices=["kernels", "table1", "table2", "fig1",
                              "fig2", "checkpoint", "serve", "wire",
-                             "wan"],
+                             "wan", "roofline"],
                     help="which benchmark to run (default kernels)")
     ap.add_argument("--smoke", action="store_true",
                     help="kernels, checkpoint, serve, wire, wan: tiny "
@@ -295,6 +320,10 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.guards:
         check_committed_guards()
+        return
+    if args.only == "roofline":       # reads records; runs nothing
+        print("name,us_per_call,derived")
+        bench_roofline()
         return
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda needs a CUDA card "

@@ -12,12 +12,18 @@ the host-side plan of which shard each rank holds, in the reference's
 leaf names; `party_handoff_plan` its analogue for a party of the EFMVFL
 cluster.
 
-Two boundaries where DTensor alone does not carry the port's forward
+Three boundaries where DTensor alone does not carry the port's forward
 are fixed in `sharded`, each counted in `boundaries`:
 * ``reshape``: an op whose sharding DTensor cannot propagate (a
   projection sharded over more ranks than it has heads, such as a smoke
   config's 2 KV heads on a 4-wide model axis, cannot be unflattened into
-  heads) runs again with its DTensor operands replicated first;
+  heads, in the forward and in its backward) or whose operands it cannot
+  redistribute runs again with its DTensor operands replicated first;
+* ``no_strategy``: an op DTensor has no sharding strategy for at all
+  (the MoE dispatch's `searchsorted`), or a wrong one in a torch the
+  port runs on (`index_add` in torch 2.11), runs on its operands' whole
+  local tensors, replicated first, and its result is replicated on
+  every rank;
 * ``host_staged``: DTensor's collectives on CUDA tensors over gloo
   (all_gather_into_tensor and reduce_scatter_tensor among them) killed
   a rank with SIGSEGV on the card, and NCCL refuses two ranks on one
@@ -43,7 +49,12 @@ from repro_torch.distributed import sharding
 def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's shard of the full tensor `t` under `spec` on a
     `DeviceMesh`, as DTensor lays it out (a tuple of axes on one dim: the
-    first major), as a fresh contiguous tensor on the mesh's device."""
+    first major), as a fresh contiguous tensor on the mesh's device.  A
+    ``meta`` tensor's shard stays on ``meta``, sized by
+    `sharding.shard_shape` (the dry-run places a model it never builds)."""
+    if t.is_meta:
+        return torch.empty(sharding.shard_shape(tuple(t.shape), spec, mesh),
+                           dtype=t.dtype, device="meta")
     names = list(mesh.mesh_dim_names)
     coord = mesh.get_coordinate()
     sizes = sharding.axis_sizes(mesh)
@@ -69,16 +80,11 @@ def replace_onto_mesh(model, mesh):
     Each rank keeps only its shards, cut from its own full tensors with
     no collective (every rank must hold the same weights, as a seeded
     build gives); `model` itself is left as it was.  The copy runs the
-    port's forward under `run_sharded`."""
-    from torch.distributed.tensor import DTensor
+    port's forward under `sharded`."""
     specs = sharding.param_specs(model, mesh)
 
     def place(name, t):
-        spec = specs[name]
-        return DTensor.from_local(local_shard(t.detach(), spec, mesh), mesh,
-                                  sharding.placements(spec, mesh),
-                                  run_check=False, shape=t.shape,
-                                  stride=_contiguous_stride(t.shape))
+        return _placed(t, specs[name], mesh)
     if not isinstance(model, torch.nn.Module):
         return {name: place(name, t)
                 for name, t in sharding.named_leaves(model)}
@@ -94,10 +100,53 @@ def replace_onto_mesh(model, mesh):
     return placed
 
 
+def _placed(t: torch.Tensor, spec: tuple, mesh):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local_shard(t.detach(), spec, mesh), mesh,
+                              sharding.placements(spec, mesh),
+                              run_check=False, shape=t.shape,
+                              stride=_contiguous_stride(t.shape))
+
+
+def place_tree(tree, specs, mesh):
+    """`tree` (a tensor, or a dict or NamedTuple of them, as an optimizer
+    state, a batch or a decode state is) with each tensor a DTensor on
+    `mesh` under the spec at its place in `specs`, each rank keeping its
+    shard (`local_shard`); other leaves (a state's integer ``length``)
+    pass as they are."""
+    if torch.is_tensor(tree):
+        return _placed(tree, specs, mesh)
+    if isinstance(tree, dict):
+        return {k: place_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(place_tree(getattr(tree, f), getattr(specs, f),
+                                       mesh) for f in tree._fields))
+    return tree
+
+
 #: the boundary fixes `sharded` made, by kind and op, in this process
 boundaries: collections.Counter = collections.Counter()
 
-_PROPAGATION_ERRORS = ("redistribute the tensor", "Sharding propagation")
+_PROPAGATION_ERRORS = ("redistribute the tensor", "Sharding propagation",
+                       # torch 2.11: a Shard -> Partial step it has no rule
+                       # for (an optimizer add of a moment and a gradient)
+                       "not supported yet")
+#: ops whose DTensor strategy is wrong in a torch the port runs on, run as
+#: if they had none: torch 2.11 shards index_add's source without its
+#: index (the MoE router's load count)
+_NO_STRATEGY_OPS = ("index_add",)
+
+
+def _boundary_kind(e: Exception) -> str | None:
+    """The boundary an exception of DTensor's dispatch marks: ``reshape``
+    (a sharding it cannot propagate or a redistribution it cannot make),
+    ``no_strategy`` (an op it has no sharding strategy for), or None (a
+    fault to raise)."""
+    if isinstance(e, NotImplementedError):
+        return "no_strategy" if "sharding strategy" in str(e) else None
+    if any(m in str(e) for m in _PROPAGATION_ERRORS):
+        return "reshape"
+    return None
 
 
 def _staged_ops():
@@ -119,30 +168,52 @@ def _first_tensor(x):
 
 
 def _sharded_modes(stage_host):
-    from torch.overrides import TorchFunctionMode
+    from torch.utils._pytree import tree_flatten, tree_map_only
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.distributed.tensor import DTensor, Replicate
     import torch.distributed as dist
     staged, wait = _staged_ops(), torch.ops._c10d_functional.wait_tensor
 
-    class Replicating(TorchFunctionMode):
-        def __torch_function__(self, func, types, args=(), kwargs=None):
+    class Replicating(TorchDispatchMode):
+        # above HostStaged: a DTensor op it runs goes through DTensor's
+        # dispatch under HostStaged, forward and backward alike
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
-            try:
+            if not any(issubclass(t, DTensor) for t in types):
                 return func(*args, **kwargs)
-            except RuntimeError as e:
-                if not any(isinstance(a, DTensor) for a in args) or \
-                        not any(m in str(e) for m in _PROPAGATION_ERRORS):
-                    raise
-            args = tuple(a.redistribute(placements=[Replicate()] *
-                                        a.device_mesh.ndim)
-                         if isinstance(a, DTensor) else a for a in args)
-            boundaries[f"reshape:{getattr(func, '__name__', func)}"] += 1
-            return func(*args, **kwargs)
+            if func.overloadpacket.__name__ in _NO_STRATEGY_OPS:
+                kind = "no_strategy"
+            else:
+                try:
+                    return func(*args, **kwargs)
+                except (RuntimeError, NotImplementedError) as e:
+                    kind = _boundary_kind(e)
+                    if kind is None:
+                        raise
+            mesh = next(a for a in tree_flatten((args, kwargs))[0]
+                        if isinstance(a, DTensor)).device_mesh
+            whole = [Replicate()] * mesh.ndim
+            args, kwargs = tree_map_only(
+                DTensor, lambda a: a.redistribute(placements=whole),
+                (args, kwargs))
+            boundaries[f"{kind}:{func.overloadpacket.__name__}"] += 1
+            if kind == "reshape":
+                return func(*args, **kwargs)
+            # no strategy at all: the op on the whole (replicated) local
+            # tensors, its result replicated on every rank
+            args, kwargs = tree_map_only(DTensor, lambda a: a.to_local(),
+                                         (args, kwargs))
+            return tree_map_only(torch.Tensor, lambda t: DTensor.from_local(
+                t, mesh, whole, run_check=False), func(*args, **kwargs))
 
     class HostStaged(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if any(issubclass(t, DTensor) for t in types):
+                if func is torch.ops.aten.detach_.default:
+                    # below autograd an in-place detach changes no data;
+                    # torch 2.11 has no DTensor strategy for it (its
+                    # redistribute calls it under no_grad)
+                    return args[0]
                 # a DTensor op: DTensor's own dispatch runs under this
                 # mode, so its collectives on local tensors come back here
                 return NotImplemented
@@ -175,7 +246,7 @@ def sharded(stage_host: bool | None = None):
     (the CPU tests run that path so)."""
     from torch.distributed.tensor.experimental import implicit_replication
     replicating, host_staged = _sharded_modes(stage_host)
-    with implicit_replication(), replicating, host_staged:
+    with implicit_replication(), host_staged, replicating:
         yield
 
 

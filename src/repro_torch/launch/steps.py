@@ -1,5 +1,7 @@
 """Step builders: the train, prefill and decode steps that the training
-driver (`launch.train`) and the card's smoke run.
+driver (`launch.train`), the dry-run (`launch.dryrun`) and the card's
+smoke run, and `build_step_bundle`, which assembles a step with its
+arguments and their specs for an (arch × shape cell × mesh).
 
 The train step is the reference's: the loss, its gradients, the global
 norm clip, then the config's optimizer.  With ``TrainConfig.microbatch``
@@ -11,10 +13,15 @@ its parameters in place, and the same model is returned.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import torch
 
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell, TrainConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import mamba2, rwkv6, transformer, whisper
+from repro_torch.models import registry as models
 from repro_torch.models.registry import ModelAPI
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 
@@ -108,3 +115,74 @@ def make_decode_step(api: ModelAPI):
         return api.decode_step(params, state, batch["token"], **extras)
 
     return decode_step
+
+
+@dataclasses.dataclass
+class StepBundle:
+    """A step with its arguments, as the reference's: ``fn(*args)``.
+    `args` are ``meta`` tensors (a ``meta`` model, its optimizer state, the
+    batch, the decode state), the counterpart of `jax.eval_shape`'s
+    structs; `in_shardings` / `out_shardings` hold the rules' specs (a
+    spec per tensor, in the arguments' and outputs' structure); `donate`
+    the argument positions the step consumes (the train step updates the
+    model in place and returns it)."""
+    fn: Any
+    args: tuple
+    in_shardings: tuple
+    out_shardings: Any
+    donate: tuple = ()
+
+
+def opt_specs(state, mesh):
+    """The specs of an optimizer state: each moment dict as the
+    parameters it mirrors (`sharding.param_specs`), a scalar (AdamW's
+    ``t``) replicated, as the reference's."""
+    if not isinstance(state, dict):                 # sgd: no state
+        return state
+    if any(isinstance(v, dict) for v in state.values()):
+        return {k: opt_specs(v, mesh) if isinstance(v, dict)
+                else sharding.replicated(mesh) for k, v in state.items()}
+    return sharding.param_specs(state, mesh)
+
+
+def build_step_bundle(cfg: ModelConfig, cell: ShapeCell, mesh,
+                      tc: TrainConfig | None = None) -> StepBundle:
+    """`cfg`'s step for `cell` on `mesh` (a `DeviceMesh` or a mapping
+    from axis to size), its ``meta`` arguments and their specs.  The
+    prefill's outputs are found as the reference finds them, by running
+    the step once on the ``meta`` arguments."""
+    api = models.build(cfg)
+    tc = tc or TrainConfig()
+    model = api.init_params(None, device="meta")
+    pspecs = sharding.param_specs(model, mesh)
+    batch = models.input_specs(cfg, cell)
+    bspecs = sharding.batch_specs(batch, mesh)
+    rep = sharding.replicated(mesh)
+
+    def logits_spec(logits):
+        return sharding.batch_specs({"logits": logits}, mesh)["logits"]
+
+    if cell.kind == "train":
+        opt, step = make_train_step(api, tc)
+        state = opt.init(dict(model.named_parameters()))
+        ospecs = opt_specs(state, mesh)
+        return StepBundle(fn=step, args=(model, state, batch),
+                          in_shardings=(pspecs, ospecs, bspecs),
+                          out_shardings=(rep, rep, pspecs, ospecs),
+                          donate=(0, 1))
+    if cell.kind == "prefill":
+        step = make_prefill_step(api, max_len=cell.seq_len)
+        logits, state = step(model, batch)
+        return StepBundle(fn=step, args=(model, batch),
+                          in_shardings=(pspecs, bspecs),
+                          out_shardings=(logits_spec(logits),
+                                         sharding.state_specs(state, mesh)))
+    step = make_decode_step(api)
+    state = api.init_decode_state(cell.global_batch, cell.seq_len,
+                                  device="meta")
+    sspecs = sharding.state_specs(state, mesh)
+    logits, _ = step(model, state, batch)
+    return StepBundle(fn=step, args=(model, state, batch),
+                      in_shardings=(pspecs, sspecs, bspecs),
+                      out_shardings=(logits_spec(logits), sspecs),
+                      donate=(1,))

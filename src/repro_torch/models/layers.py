@@ -237,8 +237,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
     """logits (…, V) f32, labels (…) int — mean NLL (ignore label < 0)."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].clamp(min=0).long()
-                        )[..., 0]
-    nll = logz - gold
+    gold = torch.gather(logits, -1, labels[..., None].clamp(min=0).long())
+    nll = (logz[..., None] - gold)[..., 0]
     mask = (labels >= 0).float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

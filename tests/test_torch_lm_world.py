@@ -11,6 +11,12 @@ One world of 4 ranks serves the file (one spawn):
   unsharded prefill and to each other at the reference test's bounds
   for bf16 reduction order (atol 8e-2, rtol 3e-2), in the config's
   bf16;
+* olmoe-1b-7b's smoke config the same way (its sorted MoE dispatch's
+  `searchsorted` through the ``no_strategy`` boundary), equal to its
+  unsharded prefill at those bounds;
+* each rank's DTensor collectives in those prefills (`CommDebugMode`)
+  equal, kind for kind, to the dry-run's census of the same step
+  (`launch.dryrun.trace` on ``meta`` in a fake world of 4);
 * `flash_decode.make_flash_decode` over 4 sequence shards, on one mesh
   axis and on a tuple of two, equal to `attention.decode_attention`
   over the whole cache at 1e-5, with no collective carrying a
@@ -18,12 +24,15 @@ One world of 4 ranks serves the file (one spawn):
 The reference's slow tests have counterparts here at their sizes (8
 ranks), marked slow like the originals.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import registry as tconfigs
 from repro_torch.distributed import elastic, flash_decode, sharding
+from repro_torch.launch import dryrun, steps
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import attention
 from repro_torch.models import registry as tmodels
@@ -37,12 +46,13 @@ def _quiet():
         logging.ERROR)
 
 
-def _elastic(shapes, toks) -> dict:
+def _elastic(shapes, toks, arch="qwen3-4b") -> dict:
     """Each mesh's sharded prefill logits (full, on every rank) and the
     checks of its placement; the unsharded prefill."""
+    from torch.distributed.tensor.debug import CommDebugMode
     _quiet()
     toks = torch.tensor(toks)
-    cfg = tconfigs.get_smoke_config("qwen3-4b")
+    cfg = tconfigs.get_smoke_config(arch)
     api = tmodels.build(cfg)
     full = api.init_params(torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
@@ -61,10 +71,12 @@ def _elastic(shapes, toks) -> dict:
         assert elastic.resident_bytes(placed) == sum(
             r["bytes_per_shard"] for r in plan.values())
         elastic.boundaries.clear()
-        with torch.no_grad(), elastic.sharded(stage_host=shape == (2, 2)):
+        with torch.no_grad(), CommDebugMode() as comm, \
+                elastic.sharded(stage_host=shape == (2, 2)):
             logits, _ = api.prefill(placed, toks, 16)
         out[shape] = logits.full_tensor().float().numpy()
         out[f"boundaries{shape}"] = dict(elastic.boundaries)
+        out[f"comm{shape}"] = dryrun.comm_counts(comm)
         out[f"plan{shape}"] = plan["layers/attn/wq"]
     return out
 
@@ -101,6 +113,7 @@ def _rank_checks(toks):
     does not outlive its rank process through the result queue)."""
     return dict(
         elastic=_elastic([(2, 2), (4, 1)], toks),
+        elastic_moe=_elastic([(2, 2), (4, 1)], toks, "olmoe-1b-7b"),
         flash_data=_flash(2, 64, 2, 2, 8, 41, "data", (4,), ("data",),
                           None),
         flash_tuple=_flash(3, 128, 4, 2, 16, 77, ("data", "model"), (2, 2),
@@ -127,6 +140,43 @@ def test_replace_onto_mesh_prefill_equals_unsharded_on_both_meshes(world):
     assert not any(k.startswith("host_staged") for k in e["boundaries(4, 1)"])
     assert e["plan(2, 2)"]["shard_shape"] != e["plan(4, 1)"]["shard_shape"]
     assert e["plan(2, 2)"]["global_shape"] == e["plan(4, 1)"]["global_shape"]
+
+
+def test_moe_prefill_runs_sharded_equal_to_unsharded(world):
+    """olmoe's sorted dispatch under `elastic.sharded`: its
+    `searchsorted`, which DTensor has no sharding strategy for, runs on
+    the replicated operands (the ``no_strategy`` boundary)."""
+    for res in world:
+        e = res["elastic_moe"]
+        for shape in ((2, 2), (4, 1)):
+            np.testing.assert_allclose(e[shape], e["unsharded"], **BOUNDS)
+            assert np.isfinite(e[shape]).all()
+            assert e[f"boundaries{shape}"].get(
+                "no_strategy:searchsorted", 0) > 0, e[f"boundaries{shape}"]
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_dry_run_census_equals_the_ranks_collectives(world, shape):
+    """The dry-run's trace of the same prefill (``meta`` tensors, a fake
+    world of 4, its tokens replicated as the ranks' plain tensors are)
+    predicts each rank's DTensor collectives exactly, for both archs."""
+    from repro_torch.configs.base import ShapeCell
+    _quiet()
+    with dryrun.fake_world(4):
+        mesh = tmesh.make_mesh(shape, ("data", "model"), "cpu")
+        for arch, key in (("qwen3-4b", "elastic"),
+                          ("olmoe-1b-7b", "elastic_moe")):
+            cfg = tconfigs.get_smoke_config(arch)
+            bundle = steps.build_step_bundle(
+                cfg, ShapeCell("p", 8, 4, "prefill"), mesh)
+            bundle = dataclasses.replace(
+                bundle, fn=steps.make_prefill_step(tmodels.build(cfg), 16),
+                in_shardings=(bundle.in_shardings[0], {"tokens": ()}))
+            rep, _ = dryrun.trace(bundle, mesh)
+            want = rep["collectives"]["op_counts"]
+            assert sum(want.values()) > 0
+            for res in world:
+                assert res[key][f"comm{shape}"] == want, (arch, shape)
 
 
 @pytest.mark.parametrize("case", ["flash_data", "flash_tuple"])
